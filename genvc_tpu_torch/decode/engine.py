@@ -4,8 +4,10 @@
 * ``prefill`` embeds [cond | text | start_audio], fills the cache with dense
   causal attention and samples the first audio code;
 * ``decode_chunk`` runs N single-token steps and returns N (token, latent)
-  pairs. The cache is updated IN PLACE (JAX returns new arrays); the write
-  position ``cur_index`` is a host integer shared by all rows (lockstep).
+  pairs; ``decode_all`` runs steps until every row has stopped or the cap
+  (non-streaming synthesis). The cache is updated IN PLACE (JAX returns new
+  arrays); the write position ``cur_index`` is a host integer shared by all
+  rows (lockstep).
 
 Semantics kept from the reference decode path: the t-th AR input sits at mel
 position t; the latent paired with token t is ``final_norm`` of the post-ln_f
@@ -29,6 +31,8 @@ from genvc_tpu_torch.models import gpt as gpt_model
 from genvc_tpu_torch.ops import decode_attention as da
 from genvc_tpu_torch.ops import nn as tnn
 from genvc_tpu_torch.ops import sampling
+
+DONE_CHECK_EVERY = 4  # decode_all steps between reads of "every row finished"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +189,39 @@ def prefill(model: gpt_model.GPT, state: DecodeState, prefix_emb, prefix_valid,
     state.n_generated = 1
     state.last_token = tok
     return tok, latent
+
+
+def decode_all(model: gpt_model.GPT, state: DecodeState, sampler: SamplerConfig,
+               max_new: int):
+    """Generate until every row has finished or ``max_new`` tokens exist
+    (the prefill token included, at slot 0). Returns (tokens (B, max_new)
+    int64, stop-padded past each row's stop token; n_generated (B,)): the
+    index of each row's first stop token + 1, else ``max_new``.
+
+    "Every row finished" is read back every ``DONE_CHECK_EVERY`` steps, not
+    every step, to save a device sync; the steps run past it only append stop
+    tokens (finished rows emit the stop token), so the output is that of a
+    loop that checks every step. ``state.n_generated`` never passes
+    ``max_new``, so the cache writes stay inside the cache.
+    """
+    stop = model.cfg.stop_audio_token
+    b = state.last_token.shape[0]
+    buf = torch.full((b, max_new), stop, dtype=torch.long,
+                     device=state.last_token.device)
+    buf[:, 0] = state.last_token
+    steps = 0
+    while state.n_generated < max_new:
+        if steps % DONE_CHECK_EVERY == 0 and bool(state.finished.all()):
+            break
+        slot = state.n_generated
+        tok, _ = _decode_one(model, state, sampler)
+        buf[:, slot] = tok
+        steps += 1
+    is_stop = buf == stop
+    first_stop = torch.argmax(is_stop.int(), dim=1)
+    n_gen = torch.where(is_stop.any(dim=1), first_stop + 1,
+                        torch.full_like(first_stop, max_new))
+    return buf, n_gen
 
 
 def decode_chunk(model: gpt_model.GPT, state: DecodeState, sampler: SamplerConfig,

@@ -1,13 +1,21 @@
-"""Streaming voice-conversion CLI of the PyTorch / CUDA port.
+"""Voice-conversion CLI of the PyTorch / CUDA port.
 
 Usage:
     python -m genvc_tpu_torch.infer --model_path GenVC_small.pth \
         --src_wav samples/EF4_ENG_0112_1.wav \
         --ref_audio samples/EM1_ENG_0037_1.wav \
-        --output_path out.wav --streaming [--top_k 1] [--bf16] \
+        --output_path out.wav [--streaming] [--top_k 1] [--bf16] \
         [--kv_cache fp8] [--seed 0] [--device cuda]
 
-Only the single-source streaming path is ported; ``--streaming`` is required.
+    # batch: N sources in one lockstep pass (one reference is broadcast)
+    python -m genvc_tpu_torch.infer --model_path GenVC_small.pth \
+        --src_wavs a.wav b.wav --ref_audios r.wav \
+        [--output_paths a_out.wav b_out.wav] [--streaming]
+
+Without ``--streaming`` the conversion is offline (``synthesize`` /
+``synthesize_batch``); with it, streamed (``synthesize_streaming`` /
+``synthesize_streaming_batch``). Flags of modes not yet ported exit with
+code 2.
 """
 
 from __future__ import annotations
@@ -17,6 +25,14 @@ import dataclasses
 import os
 import sys
 
+# flags of modes the port does not have yet: (test on the parsed args, message)
+_NOT_PORTED = [
+    (lambda a: a.num_beams > 1 or a.num_beam_groups > 1 or a.penalty_alpha > 0,
+     "beam, group-beam and contrastive decoding are not ported yet (ROADMAP A10)"),
+    (lambda a: a.serve > 0, "--serve (StreamServer) is not ported yet (ROADMAP A11)"),
+    (lambda a: a.quantize is not None, "--quantize is not ported yet (ROADMAP A9)"),
+]
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
@@ -25,6 +41,14 @@ def main(argv=None) -> int:
     parser.add_argument("--src_wav", type=str, default="samples/EF4_ENG_0112_1.wav")
     parser.add_argument("--ref_audio", type=str, default="samples/EM1_ENG_0037_1.wav")
     parser.add_argument("--output_path", type=str, default="samples/converted.wav")
+    parser.add_argument("--src_wavs", type=str, nargs="+", default=None,
+                        help="batch mode: convert N sources in one lockstep pass")
+    parser.add_argument("--ref_audios", type=str, nargs="+", default=None,
+                        help="per-source references for --src_wavs (one path "
+                             "is broadcast)")
+    parser.add_argument("--output_paths", type=str, nargs="+", default=None,
+                        help="per-source outputs for --src_wavs (default: "
+                             "<output_path stem>_<i>.wav)")
     parser.add_argument("--top_k", type=int, default=15)
     parser.add_argument("--streaming", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
@@ -32,11 +56,17 @@ def main(argv=None) -> int:
                         help="run the GPT in bfloat16")
     parser.add_argument("--kv_cache", type=str, default=None, choices=["fp8"],
                         help="store the decode KV cache as float8_e4m3")
+    parser.add_argument("--num_beams", type=int, default=1)
+    parser.add_argument("--num_beam_groups", type=int, default=1)
+    parser.add_argument("--penalty_alpha", type=float, default=0.0)
+    parser.add_argument("--serve", type=int, default=0, metavar="SLOTS")
+    parser.add_argument("--quantize", type=str, default=None, choices=["int8"])
     args = parser.parse_args(argv)
 
-    if not args.streaming:
-        print("only --streaming synthesis is ported", file=sys.stderr)
-        return 2
+    for not_ported, message in _NOT_PORTED:
+        if not_ported(args):
+            print(message, file=sys.stderr)
+            return 2
     if not os.path.exists(args.model_path):
         print(f"model checkpoint not found: {args.model_path}", file=sys.stderr)
         return 1
@@ -53,12 +83,46 @@ def main(argv=None) -> int:
     # streaming (reference README.md:52)
     pipe.sampler = dataclasses.replace(pipe.sampler, top_k=args.top_k)
 
+    if args.src_wavs:
+        ref_paths = args.ref_audios or [args.ref_audio]
+        if len(ref_paths) == 1:
+            ref_paths = ref_paths * len(args.src_wavs)
+        outs = args.output_paths
+        if not outs:
+            stem, ext = os.path.splitext(args.output_path)
+            outs = [f"{stem}_{i}{ext or '.wav'}" for i in range(len(args.src_wavs))]
+        if len(ref_paths) != len(args.src_wavs) or len(outs) != len(args.src_wavs):
+            print("--ref_audios and --output_paths must match --src_wavs (or "
+                  "give one reference)", file=sys.stderr)
+            return 1
+        srcs = [load_audio(p, pipe.content_sample_rate) for p in args.src_wavs]
+        refs = [load_audio(p, pipe.sample_rate) for p in ref_paths]
+        if any(x is None for x in srcs + refs):
+            print("failed to load audio", file=sys.stderr)
+            return 1
+        if args.streaming:
+            wavs, _, _ = pipe.synthesize_streaming_batch(srcs, refs)
+        else:
+            wavs = pipe.synthesize_batch(srcs, refs)
+        written = 0
+        for path, wav in zip(outs, wavs):
+            if wav.shape[-1] == 0:
+                print(f"{path}: decode produced no audio; not written", file=sys.stderr)
+                continue
+            write_wav(path, wav, pipe.sample_rate)
+            print(f"wrote {path}")
+            written += 1
+        return 0 if written else 1
+
     src_wav = load_audio(args.src_wav, pipe.content_sample_rate)
     ref_audio = load_audio(args.ref_audio, pipe.sample_rate)
     if src_wav is None or ref_audio is None:
         print("failed to load audio", file=sys.stderr)
         return 1
-    wav, _, _ = pipe.synthesize_streaming(src_wav, ref_audio)
+    if args.streaming:
+        wav, _, _ = pipe.synthesize_streaming(src_wav, ref_audio)
+    else:
+        wav = pipe.synthesize(src_wav, ref_audio)
     if wav.shape[-1] == 0:
         print("decode produced no audio", file=sys.stderr)
         return 1

@@ -1,19 +1,28 @@
-"""Streaming voice conversion (``genvc_tpu/inference/pipeline.py``, the
-streaming subset).
+"""Voice conversion, streaming and offline (``genvc_tpu/inference/pipeline.py``
+without the beam, contrastive, quantized and serving modes).
 
 The chain: resample the source to 16 kHz; ContentVec -> content-dVAE codes
 per 6 s segment; Perceiver speaker latents from the reference's mel; GPT
-prefix + prefill; decode in windows (the first of ``FIRST_CHUNK_TOKENS`` = 4
-tokens: the prefill latent plus 3 decode steps; later ones 8); each window's
-latents x4-interpolated and vocoded by HiFi-GAN with its own conv context;
-windows joined with a 1024-sample crossfade.
+prefix + prefill; then
 
-The streaming loop emits the same windows as the JAX one. Its speculative in-flight
-depth and multi-window calls hid TPU-link round trips and are not needed
-here: this loop decodes one window, reads its tokens back, vocodes, and
-goes on. Static widths (6 s segments, 80 content codes, 6 s reference chunks)
-and the KV-cache geometry are the JAX package's, so both sides compute over
-the same shapes.
+* streaming (``synthesize_streaming``, and ``synthesize_streaming_batch`` for
+  B utterances in lockstep): decode in windows (the first of
+  ``FIRST_CHUNK_TOKENS`` = 4 tokens: the prefill latent plus 3 decode steps;
+  later ones 8); each window's latents x4-interpolated and vocoded by
+  HiFi-GAN with its own conv context; windows joined with a 1024-sample
+  crossfade;
+* offline (``synthesize``, and ``synthesize_batch``): decode each segment to
+  its stop token or cap (``engine.decode_all``), re-run the generated codes
+  teacher-forced through the GPT for their latents (the latent pass, whose
+  attention is the flash-attention kernel), and vocode the whole utterance
+  in one masked call.
+
+The streaming loops emit the same windows as the JAX ones. Their speculative
+in-flight depth and multi-window calls hid TPU-link round trips and are not
+needed here: a loop decodes one window, reads its tokens back, vocodes, and
+goes on. Static widths (6 s segments, 80 content codes, 6 s reference chunks,
+latent widths in buckets of 64) and the KV-cache geometry are the JAX
+package's, so both sides compute over the same shapes.
 """
 
 from __future__ import annotations
@@ -45,6 +54,11 @@ TEXT_WIDTH = 80  # static content-code width (6 s @ 12.5 Hz = 75 codes)
 # one in-flight call (STREAM_CHUNK * chunks_per_call = 16 steps). Kept so the
 # cache geometry is the JAX package's (T = 384 for the flagship at cap 1.875).
 CACHE_SLACK = 16
+LATENT_BUCKET = 64  # latent-pass and offline-vocoder widths, in codes
+
+
+def _bucket(n: int, step: int = LATENT_BUCKET) -> int:
+    return max(step, int(np.ceil(n / step) * step))
 
 
 class GenVCPipeline:
@@ -156,30 +170,47 @@ class GenVCPipeline:
     def get_gpt_cond_latents(self, ref_audio: np.ndarray):
         """(1, T) 24 kHz reference -> (1, 32, D) speaker latents: the mean of
         the latents of its 6-s chunks (at most 30 s)."""
-        pcm, n_frames, valid = self._prep_ref_chunks(ref_audio)
-        if not valid.any():
+        return self.get_gpt_cond_latents_batch([ref_audio])
+
+    @torch.inference_mode()
+    def get_gpt_cond_latents_batch(self, ref_audios):
+        """List of B (1, T) references -> (B, 32, D) latents, each the mean
+        over its own valid chunks; the chunks of all references go through
+        the mel and the Perceiver as one batch."""
+        preps = [self._prep_ref_chunks(r) for r in ref_audios]
+        counts = [int(valid.sum()) for _, _, valid in preps]
+        if min(counts) == 0:
             raise ValueError("reference audio is shorter than 0.33 s")
-        wav = self._to_device_pcm(pcm[valid])
+        wav = self._to_device_pcm(np.concatenate([pcm[valid] for pcm, _, valid in preps]))
         m = mel_mod.mel_torchaudio(wav, self.style_spec, self.mel_norms,
                                    pre_padded=True)
-        frames = torch.as_tensor(n_frames[valid], device=self.device)
+        frames = torch.as_tensor(np.concatenate([n[valid] for _, n, valid in preps]),
+                                 device=self.device)
         frame_valid = torch.arange(m.shape[-1], device=self.device)[None, :] < frames[:, None]
         embs = gpt_model.get_style_emb(self.gpt, m, frame_valid)
-        return (embs.sum(dim=0) / max(int(valid.sum()), 1))[None]
+        return torch.stack([e.sum(dim=0) / n for e, n in zip(embs.split(counts), counts)])
 
     @torch.inference_mode()
     def extract_content_codes(self, seg16k: np.ndarray, t_real: int):
         """(1, 96000) zero-padded 16 kHz segment with ``t_real`` true samples
         -> (codes (1, TEXT_WIDTH) int64 on device, n_codes)."""
-        wav = self._to_device_pcm(self._pcm16(seg16k))
-        sample_valid = torch.tensor([t_real], device=self.device)
+        codes, n_codes = self.extract_content_codes_batch(seg16k, [t_real])
+        return codes, n_codes[0]
+
+    @torch.inference_mode()
+    def extract_content_codes_batch(self, segs16k: np.ndarray, t_reals):
+        """(B, 96000) zero-padded 16 kHz segments with ``t_reals`` true
+        samples each -> (codes (B, TEXT_WIDTH) int64 on device, n_codes
+        list)."""
+        wav = self._to_device_pcm(self._pcm16(segs16k))
+        sample_valid = torch.tensor(list(t_reals), device=self.device)
         feats = self.contentvec(wav, sample_valid).transpose(1, 2)
         valid = sample_valid
         for _, k, s in contentvec.CONV_LAYERS:
             valid = ((valid - k) // s + 1).clamp_min(0)
         codes = self.content_dvae.get_codebook_indices(feats, valid_len=valid)
         codes = torch.nn.functional.pad(codes, (0, TEXT_WIDTH - codes.shape[1]))
-        return codes, self._host_n_codes(t_real)
+        return codes, [self._host_n_codes(t) for t in t_reals]
 
     def _segments(self, src_wav: np.ndarray):
         """Split the source into 6 s segments, the last one counted as at
@@ -191,20 +222,56 @@ class GenVCPipeline:
             padded = np.pad(seg, ((0, 0), (0, self._seg_len_16k - seg.shape[-1])))
             yield padded, t_real
 
+    def _round_rows(self, seg_lists, r: int):
+        """Round ``r`` of a lockstep batch: every utterance's r-th segment.
+        An utterance with fewer segments rides along as a zero segment of
+        the minimum length and is dropped. Returns (segments (B, 96000),
+        true lengths, active flags)."""
+        segs, t_reals, active = [], [], []
+        for s in seg_lists:
+            if r < len(s):
+                seg, t_real = s[r]
+            else:
+                seg = np.zeros((1, self._seg_len_16k), np.float32)
+                t_real = self._min_chunk_16k
+            segs.append(seg[0])
+            t_reals.append(t_real)
+            active.append(r < len(s))
+        return np.stack(segs), t_reals, active
+
     @torch.inference_mode()
-    def _start_segment(self, seg_padded: np.ndarray, t_real: int):
-        """Content codes + prefix + prefill for one segment; returns
-        (state, first_token (1,), first_latent (1, D))."""
-        codes, n_codes = self.extract_content_codes(seg_padded, t_real)
-        text_len = torch.tensor([n_codes], device=self.device)
-        prefix, valid = gpt_model.build_prefix_emb(self.gpt, self._cond_latent,
-                                                   codes, text_len)
-        state = engine.init_state(self.gpt_cfg, self._prefix_width, 1,
+    def _start_segment(self, segs: np.ndarray, t_reals, cond):
+        """Content codes + prefix + prefill for B segments (B, 96000) with
+        speaker latents ``cond`` (B, 32, D); returns (state, first tokens
+        (B,), first latents (B, D), codes (B, TEXT_WIDTH), n_codes list)."""
+        codes, n_codes = self.extract_content_codes_batch(segs, t_reals)
+        text_len = torch.tensor(n_codes, device=self.device)
+        prefix, valid = gpt_model.build_prefix_emb(self.gpt, cond, codes, text_len)
+        state = engine.init_state(self.gpt_cfg, self._prefix_width, len(n_codes),
                                   self.device, cache_dtype=self.cache_dtype,
                                   generator=self.generator,
                                   gen_tokens=self._cache_gen_tokens())
         tok0, lat0 = engine.prefill(self.gpt, state, prefix, valid, self.sampler)
-        return state, tok0, lat0
+        return state, tok0, lat0, codes, n_codes
+
+    @torch.inference_mode()
+    def _latent_pass(self, codes, n_codes, gens, cond):
+        """Teacher-forced latents of the generated codes (the JAX
+        ``latent_fn``): ``gens`` holds each row's codes without the stop
+        token, at a width bucketed to 64 past the longest + 3. Returns (B,
+        W, D) f32; row i's first len(gens[i]) latents are its own."""
+        wm = _bucket(max(len(g) for g in gens) + 3)
+        gen_arr = np.zeros((len(gens), wm), np.int64)
+        n_arr = np.ones((len(gens),), np.int64)
+        for i, g in enumerate(gens):
+            gen_arr[i, : len(g)] = g
+            n_arr[i] = max(len(g), 1)
+        dev = self.device
+        lat = gpt_model.forward_latent(
+            self.gpt, codes, torch.tensor(n_codes, device=dev),
+            torch.as_tensor(gen_arr, device=dev),
+            torch.as_tensor(n_arr * self.gpt_cfg.code_stride_len, device=dev), cond)
+        return lat.float()
 
     @torch.inference_mode()
     def vocode(self, latents, valid: int | None = None):
@@ -223,7 +290,97 @@ class GenVCPipeline:
         wav = self.vocode(lat, valid=rem)
         return wav[0, : rem * self.gpt_cfg.code_stride_len]
 
+    def batch_window_vocode(self, all_lats, win: int):
+        """(B, W, D) latents -> (B, W // win, win * 1024) audio: each row's
+        complete ``win``-latent windows folded into the vocoder's batch, each
+        vocoded with its own conv context (the JAX ``batch_window_vocode``)."""
+        b, w, d = all_lats.shape
+        n = w // win
+        wavs = self.vocode(all_lats[:, : n * win].reshape(b * n, win, d))
+        return wavs.reshape(b, n, -1)
+
+    def _vocode_utterance(self, lat) -> np.ndarray:
+        """(n, D) latents of a whole utterance -> (n * 1024,) audio: one
+        vocoder call at width ``_bucket(n)``, masked past n (the JAX
+        ``vocode_masked_fn``)."""
+        n = lat.shape[0]
+        padded = torch.zeros(1, _bucket(n), lat.shape[-1], device=lat.device)
+        padded[0, :n] = lat
+        wav = self.vocode(padded, valid=n)
+        return wav[0, : n * self.gpt_cfg.code_stride_len].float().cpu().numpy()
+
     # ------------------------------------------------------------ public API
+
+    @torch.inference_mode()
+    def synthesize(self, src_wav: np.ndarray, ref_audio: np.ndarray,
+                   num_beams: int = 1, penalty_alpha: float = 0.0) -> np.ndarray:
+        """Non-streaming VC (reference synthesize_utt): ``src_wav`` (1, T) at
+        16 kHz, ``ref_audio`` (1, T) at 24 kHz -> (T_out,) at 24 kHz. Per 6 s
+        segment: content codes + prefill, ``decode_all``, the latent pass;
+        then one masked vocoder call over the whole utterance.
+        ``self.last_timing`` counts ``decode_steps`` and ``latent_passes``.
+        Only greedy / sampled decoding is ported (``num_beams`` 1,
+        ``penalty_alpha`` 0)."""
+        if num_beams > 1 or penalty_alpha > 0.0:
+            raise NotImplementedError("beam and contrastive decoding are not "
+                                      "ported yet (ROADMAP A10)")
+        timing = self.last_timing = {"decode_steps": 0, "latent_passes": 0}
+        stop = self.gpt_cfg.stop_audio_token
+        with record_function("genvc.cond_latents"):
+            self._cond_latent = self.get_gpt_cond_latents(ref_audio)
+        final = []
+        for seg, t_real in self._segments(src_wav):
+            with record_function("genvc.prefill"):
+                state, _, _, codes, n_codes = self._start_segment(
+                    seg, [t_real], self._cond_latent)
+            with record_function("genvc.decode"):
+                toks, n_gen = engine.decode_all(self.gpt, state, self.sampler,
+                                                self._max_new(n_codes[0]))
+                gen = [int(t) for t in toks[0, : int(n_gen[0])].tolist() if t != stop]
+            timing["decode_steps"] += state.n_generated - 1
+            if not gen:
+                continue
+            with record_function("genvc.latent_pass"):
+                lat = self._latent_pass(codes, n_codes, [gen], self._cond_latent)
+            timing["latent_passes"] += 1
+            final.append(lat[0, : len(gen)])
+        if not final:
+            # every segment decoded straight to the stop token
+            return np.zeros((0,), np.float32)
+        with record_function("genvc.vocode"):
+            return self._vocode_utterance(torch.cat(final))
+
+    @torch.inference_mode()
+    def synthesize_batch(self, src_wavs, ref_audios):
+        """Batched offline conversion: B utterances' segments decode together,
+        round r taking every utterance's r-th segment. ``src_wavs`` /
+        ``ref_audios``: lists of (1, T) arrays at 16 kHz / 24 kHz. Returns a
+        list of (T_out,) waveforms at 24 kHz."""
+        bsz = len(src_wavs)
+        timing = self.last_timing = {"decode_steps": 0, "latent_passes": 0}
+        stop = self.gpt_cfg.stop_audio_token
+        conds = self.get_gpt_cond_latents_batch(ref_audios)
+        seg_lists = [list(self._segments(s)) for s in src_wavs]
+        latents = [[] for _ in range(bsz)]
+        for r in range(max(len(s) for s in seg_lists)):
+            segs, t_reals, active = self._round_rows(seg_lists, r)
+            state, _, _, codes, n_codes = self._start_segment(segs, t_reals, conds)
+            toks, n_gen = engine.decode_all(self.gpt, state, self.sampler,
+                                            max(self._max_new(n) for n in n_codes))
+            timing["decode_steps"] += state.n_generated - 1
+            toks, n_gen = toks.tolist(), n_gen.tolist()
+            # per-row generation cap (the batch decodes to the largest)
+            gens = [[t for t in toks[i][: n_gen[i]] if t != stop][: self._max_new(n_codes[i])]
+                    if active[i] else [] for i in range(bsz)]
+            if not any(gens):
+                continue
+            lat = self._latent_pass(codes, n_codes, gens, conds)
+            timing["latent_passes"] += 1
+            for i, g in enumerate(gens):
+                if g:
+                    latents[i].append(lat[i, : len(g)])
+        return [self._vocode_utterance(torch.cat(lats)) if lats
+                else np.zeros((0,), np.float32) for lats in latents]
 
     @torch.inference_mode()
     def synthesize_streaming(self, src_wav: np.ndarray, ref_audio: np.ndarray,
@@ -260,7 +417,8 @@ class GenVCPipeline:
             else:
                 win = csz
             with record_function("genvc.prefill"):
-                state, _, lat0 = self._start_segment(seg, t_real)
+                state, _, lat0, _, _ = self._start_segment(seg, [t_real],
+                                                           self._cond_latent)
             max_new = self._max_new(self._host_n_codes(t_real))
             carry, carry_n, k = lat0[:, None, :], 1, win - 1
             n_total = 1
@@ -298,6 +456,86 @@ class GenVCPipeline:
         if verbose:
             print(f"Real-time factor: {rtf:.3f}")
         return wav, latency, rtf
+
+    @torch.inference_mode()
+    def synthesize_streaming_batch(self, src_wavs, ref_audios, verbose: bool = True):
+        """B utterances streamed in lockstep through the batched decode: per-
+        row EOS and cap, per-row crossfade, the short first window in round 0
+        (each row's first audio). ``src_wavs`` / ``ref_audios``: lists of
+        (1, T) arrays at 16 kHz / 24 kHz. Returns (list of (T_out,) wavs at
+        24 kHz, per-row first-chunk latency in s, aggregate RTF = elapsed /
+        total source audio); ``self.last_timing["decode_steps"]`` counts the
+        AR steps run."""
+        begin = time.perf_counter()
+        timing = self.last_timing = {"decode_steps": 0}
+        bsz = len(src_wavs)
+        stop = self.gpt_cfg.stop_audio_token
+        csz = STREAM_CHUNK
+        outs = [[] for _ in range(bsz)]
+        overlaps = [None] * bsz
+        latencies = [None] * bsz
+
+        def emit(i, wav_gen):
+            chunk, overlaps[i] = _handle_chunk(wav_gen.float().cpu().numpy(),
+                                               overlaps[i], CROSSFADE)
+            outs[i].append(chunk)
+            if latencies[i] is None:
+                latencies[i] = time.perf_counter() - begin
+
+        conds = self.get_gpt_cond_latents_batch(ref_audios)
+        seg_lists = [list(self._segments(s)) for s in src_wavs]
+        for r in range(max(len(s) for s in seg_lists)):
+            segs, t_reals, active = self._round_rows(seg_lists, r)
+            state, _, lat0, _, n_codes = self._start_segment(segs, t_reals, conds)
+            caps = [self._max_new(n) if a else 1 for n, a in zip(n_codes, active)]
+            done = [not a for a in active]
+            win = FIRST_CHUNK_TOKENS if r == 0 else csz
+            carry, carry_n, k = lat0[:, None, :], 1, win - 1
+            n_total = 1
+            first_call = True
+            while not all(done):
+                toks, lats, pre_fin = engine.decode_chunk(self.gpt, state,
+                                                          self.sampler, chunk=k)
+                all_lats = torch.cat([carry, lats], dim=1)
+                toks_np, pre_fin_np = toks.cpu().numpy(), pre_fin.cpu().numpy()
+                timing["decode_steps"] += k
+                ends = {}  # row -> (complete windows, remainder), for rows still going
+                for i in range(bsz):
+                    if done[i]:
+                        continue
+                    if first_call and bool(pre_fin_np[i, 0]):
+                        # EOS on the prefill-sampled token: vocode that latent only
+                        emit(i, self._vocode_tail(all_lats[i : i + 1], 0, 1, win))
+                        done[i] = True
+                        continue
+                    eos_j, _, full, rem = window_accounting(
+                        toks_np[i], n_total, caps[i], stop, carry_n, win)
+                    ends[i] = (full, rem if eos_j is not None else 0)
+                    done[i] = eos_j is not None
+                rows = [i for i, (full, _) in ends.items() if full]
+                if rows:
+                    wavs = self.batch_window_vocode(all_lats[rows], win)
+                    for j, i in enumerate(rows):
+                        for w in range(ends[i][0]):
+                            emit(i, wavs[j, w])
+                for i, (full, rem) in ends.items():
+                    if rem:
+                        emit(i, self._vocode_tail(all_lats[i : i + 1], full * win,
+                                                  rem, win))
+                first_call = False
+                n_total += k
+                carry = all_lats[:, :0]
+                carry_n, k, win = 0, csz, csz
+
+        wavs_out = [np.concatenate(o, axis=-1) if o else np.zeros((0,), np.float32)
+                    for o in outs]
+        total_audio = sum(s.shape[-1] for s in src_wavs) / self.content_sample_rate
+        agg_rtf = (time.perf_counter() - begin) / total_audio
+        if verbose:
+            lat_s = [f"{v:.3f}" if v is not None else "-" for v in latencies]
+            print(f"Batch latencies (s): {lat_s}")
+            print(f"Aggregate real-time factor: {agg_rtf:.3f} ({bsz} streams)")
+        return wavs_out, latencies, agg_rtf
 
 
 def window_accounting(toks, n_total: int, max_new: int, stop: int,

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from genvc_tpu_torch.models import perceiver
+from genvc_tpu_torch.ops import flash_attention as fa
 from genvc_tpu_torch.ops import nn as tnn
 
 
@@ -136,6 +137,69 @@ def build_prefix_emb(model: GPT, cond_latents, text_tokens, text_length):
     valid = torch.cat([torch.ones(b, cond_latents.shape[1], dtype=torch.bool,
                                   device=dev), text_valid], dim=1)
     return prefix, valid
+
+
+def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None):
+    """Full-sequence causal forward (``gpt.core_forward``). h: (B, T, D);
+    key_valid: (B, T) bool. Every block's attention goes through
+    ``ops.flash_attention`` (the kernel on the card, its plain version on the
+    CPU), as the JAX package routes it on its accelerator."""
+    b, t, _ = h.shape
+    kv = key_valid if key_valid is not None else torch.ones(
+        b, t, dtype=torch.bool, device=h.device)
+    for block in core.blocks:
+        x = block.ln_1(h)
+        q, k, v = (tnn.split_heads(a, cfg.heads)
+                   for a in block.attn.c_attn(x).chunk(3, dim=-1))
+        a = tnn.merge_heads(fa.flash_attention(q, k, v, kv))
+        h = block.mlp_forward(h + block.attn.c_proj(a))
+    return core.ln_f(h)
+
+
+def _format_io(tokens, lengths, start_token: int, stop_token: int):
+    """Inputs of the reference's set_*_padding + set_inputs_and_targets:
+    positions >= length become ``stop_token``, then [start | tokens | stop].
+    tokens (B, W) -> (B, W + 2)."""
+    b, w = tokens.shape
+    pos = torch.arange(w, device=tokens.device)[None, :]
+    toks = torch.where(pos < lengths[:, None], tokens,
+                       torch.full_like(tokens, stop_token))
+    return torch.cat([torch.full((b, 1), start_token, dtype=toks.dtype, device=toks.device),
+                      toks,
+                      torch.full((b, 1), stop_token, dtype=toks.dtype, device=toks.device)],
+                     dim=1)
+
+
+def forward_latent(model: GPT, text_inputs, text_lengths, audio_codes,
+                   wav_lengths, cond_latents):
+    """Teacher-forced latents (``gpt.forward_train(..., return_latent=True,
+    train=False)``): text_inputs (B, Wt) and audio_codes (B, Wm) zero-padded,
+    text_lengths (B,), wav_lengths (B,) in samples, cond_latents (B, 32, D).
+    Returns (B, Wm + 2 - 5, D) in the GPT's dtype: ``final_norm`` of the
+    audio positions, with the reference's trailing trim of 5."""
+    cfg = model.cfg
+    b, wt = text_inputs.shape
+    wm = audio_codes.shape[1]
+    dev = text_inputs.device
+    code_lengths = torch.ceil(wav_lengths / cfg.code_stride_len).long() + 3
+    text_inp = _format_io(text_inputs, text_lengths, cfg.start_text_token,
+                          cfg.stop_text_token)
+    mel_inp = _format_io(audio_codes, code_lengths - 3, cfg.start_audio_token,
+                         cfg.stop_audio_token)
+    text_emb = model.text_embedding[text_inp] + model.text_pos[None, : wt + 2]
+    mel_emb = model.mel_embedding[mel_inp] + model.mel_pos[None, : wm + 2]
+    n_cond = cond_latents.shape[1]
+    emb = torch.cat([cond_latents.to(text_emb.dtype), text_emb, mel_emb], dim=1)
+    # the reference's tensors are exactly as wide as the batch needs; under
+    # the static widths only columns it would not have are masked
+    tpos = torch.arange(wt + 2, device=dev)[None, :]
+    mpos = torch.arange(wm + 2, device=dev)[None, :]
+    key_valid = torch.cat([torch.ones(b, n_cond, dtype=torch.bool, device=dev),
+                           tpos <= text_lengths[:, None] + 1,
+                           mpos <= code_lengths[:, None] + 1], dim=1)
+    h = core_forward(model.core, emb.to(model.compute_dtype), cfg, key_valid)
+    enc = model.final_norm(h[:, n_cond:])
+    return enc[:, -(wm + 2):][:, :-5]
 
 
 def init_tree(gen, cfg: GPTConfig):

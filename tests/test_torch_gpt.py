@@ -128,3 +128,81 @@ def test_torch_sampling_uses_the_generator():
     a = tsamp.sample_token(logits, torch.Generator().manual_seed(3))
     b = tsamp.sample_token(logits, torch.Generator().manual_seed(3))
     torch.testing.assert_close(a, b)
+
+
+def test_torch_forward_latent_matches_jax(pipes, prefix):
+    """The latent pass at B = 2 (text lengths 30 / 50, 20 / 45 generated
+    codes at the bucketed width 64) against JAX ``forward_train(...,
+    return_latent=True, train=False)``, atol 1e-4 (f32 on both sides; the
+    JAX CPU path is its dense attention, the port's the flash version)."""
+    jp, tp = pipes
+    _, cond, _, _ = prefix
+    rng = np.random.default_rng(11)
+    cond2 = np.concatenate([cond, cond[:, ::-1]])
+    codes = np.zeros((2, 80), np.int64)
+    codes[:, :50] = rng.integers(0, 256, (2, 50))
+    text_len = np.asarray([30, 50])
+    gen = np.zeros((2, 64), np.int64)
+    gen[0, :20] = rng.integers(0, 1024, 20)
+    gen[1, :45] = rng.integers(0, 1024, 45)
+    wav_len = np.asarray([20, 45]) * 1024
+    want = jgpt.forward_train(
+        jp.gpt_params, jp.gpt_cfg, jnp.asarray(codes, jnp.int32),
+        jnp.asarray(text_len, jnp.int32), jnp.asarray(gen, jnp.int32),
+        jnp.asarray(wav_len, jnp.int32), cond_latents=jnp.asarray(cond2),
+        return_latent=True, train=False)
+    with torch.inference_mode():
+        got = tgpt.forward_latent(tp.gpt, *(torch.from_numpy(np.ascontiguousarray(x))
+                                            for x in (codes, text_len, gen, wav_len, cond2)))
+    assert got.shape == want.shape == (2, 64 + 2 - 5, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,stop_bias", [(1, 0.0), (1, 0.8), (2, 0.8)])
+def test_torch_decode_all_matches_jax(pipes, prefix, rows, stop_bias):
+    """``decode_all`` tokens and n_generated identical to JAX's, greedy with
+    the repetition penalty, to the cap of 48. ``stop_bias`` raises the stop
+    token's logit so that rows stop on their own: with 0.8 the two rows
+    (text lengths 30 and 50) stop at different steps."""
+    jp, tp = pipes
+    _, cond, _, _ = prefix
+    rng = np.random.default_rng(12)
+    codes = np.zeros((rows, 80), np.int64)
+    codes[:, :50] = rng.integers(0, 256, (rows, 50))
+    n = np.asarray([30, 50][:rows])
+    cond = np.repeat(cond, rows, axis=0)
+    max_new, stop = 48, jp.gpt_cfg.stop_audio_token
+    jcfg, pw = jp.gpt_cfg, jp._prefix_width
+
+    jparams = dict(jp.gpt_params)
+    jparams["mel_head"] = dict(jparams["mel_head"])
+    jparams["mel_head"]["b"] = jparams["mel_head"]["b"].at[stop].add(stop_bias)
+    jemb, jvalid = jgpt.build_prefix_emb(jparams, jcfg, jnp.asarray(cond),
+                                         jnp.asarray(codes, jnp.int32),
+                                         jnp.asarray(n, jnp.int32))
+    jstate = jeng.init_state(jcfg, pw, rows, jcfg.heads, jcfg.model_dim // jcfg.heads,
+                             jax.random.key(0), cache_dtype=jnp.float32, gen_tokens=64)
+    jstate, _, _ = jeng.prefill(jparams, jcfg, jstate, jemb, jvalid,
+                                jeng.SamplerConfig(**GREEDY))
+    _, jtoks, jn = jeng.decode_all(jparams, jcfg, jstate, jeng.SamplerConfig(**GREEDY),
+                                   max_new)
+
+    bias = tp.gpt.mel_head.b.clone()
+    try:
+        tp.gpt.mel_head.b[stop] += stop_bias
+        with torch.inference_mode():
+            temb, tvalid = tgpt.build_prefix_emb(tp.gpt, torch.from_numpy(cond),
+                                                 torch.from_numpy(codes), torch.from_numpy(n))
+            tstate = teng.init_state(tp.gpt_cfg, pw, rows, "cpu", gen_tokens=64)
+            teng.prefill(tp.gpt, tstate, temb, tvalid, teng.SamplerConfig(**GREEDY))
+            ttoks, tn = teng.decode_all(tp.gpt, tstate, teng.SamplerConfig(**GREEDY),
+                                        max_new)
+    finally:
+        tp.gpt.mel_head.b.copy_(bias)
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert tstate.n_generated <= max_new
+    if stop_bias:
+        assert (tn.numpy() < max_new).all() and len(set(tn.tolist())) == rows
+    else:
+        assert tn.tolist() == [max_new]

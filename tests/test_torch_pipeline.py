@@ -165,3 +165,103 @@ def test_torch_infer_cli_writes_audio(bundle, tmp_path):
     assert rc == 0
     audio, sr = read_wav(out)
     assert sr == 24000 and audio.shape[1] > 0
+
+
+def _utterances(seed, seconds):
+    """Sources of the given lengths and references of 1, 2, ... seconds."""
+    rng = np.random.default_rng(seed)
+    srcs = [(rng.standard_normal((1, int(16000 * s))) * 0.1).astype(np.float32)
+            for s in seconds]
+    refs = [(rng.standard_normal((1, 24000 * (i + 1))) * 0.1).astype(np.float32)
+            for i in range(len(seconds))]
+    return srcs, refs
+
+
+@pytest.mark.parametrize("seconds", [1.5, 7.0])
+def test_torch_synthesize_matches_jax(pipes, seconds):
+    """Offline conversion (decode_all, the latent pass, one masked vocoder
+    call): same length, waveform within atol 1e-3."""
+    jp, tp = pipes
+    (src,), (ref,) = _utterances(int(seconds * 10) + 1, [seconds])
+    want = jp.synthesize(src, ref)
+    got = tp.synthesize(src, ref)
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert tp.last_timing["latent_passes"] == (2 if seconds > 6 else 1)
+    assert tp.last_timing["decode_steps"] > 0
+
+
+def test_torch_synthesize_batch_matches_jax(pipes):
+    """Three utterances of 1.5, 7 and 3 s: two lockstep rounds, the second
+    with two rows riding along inactive. Per row: same length, atol 1e-3."""
+    jp, tp = pipes
+    srcs, refs = _utterances(21, [1.5, 7.0, 3.0])
+    want = jp.synthesize_batch(srcs, refs)
+    got = tp.synthesize_batch(srcs, refs)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.size > 0
+        np.testing.assert_allclose(g, w, atol=1e-3)
+    assert tp.last_timing["latent_passes"] == 2
+
+
+def test_torch_synthesize_streaming_batch_matches_jax(pipes):
+    """Two streams of 1.5 and 7 s in lockstep: per-row EOS / cap and
+    crossfade; per row the same length and waveform within atol 1e-3."""
+    jp, tp = pipes
+    srcs, refs = _utterances(22, [1.5, 7.0])
+    want, _, _ = jp.synthesize_streaming_batch(srcs, refs, verbose=False)
+    got, latencies, rtf = tp.synthesize_streaming_batch(srcs, refs, verbose=False)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.size > 0
+        np.testing.assert_allclose(g, w, atol=1e-3)
+    assert all(v is not None and v > 0 for v in latencies) and rtf > 0
+
+
+def test_torch_offline_modes_not_ported_raise(pipes):
+    _, tp = pipes
+    (src,), (ref,) = _utterances(23, [1.0])
+    for kw in ({"num_beams": 2}, {"penalty_alpha": 0.6}):
+        with pytest.raises(NotImplementedError, match="A10"):
+            tp.synthesize(src, ref, **kw)
+
+
+def test_torch_infer_cli_offline_and_batch(bundle, tmp_path):
+    """The CLI without --streaming (offline, the default) and with
+    --src_wavs (batch, offline and streamed) writes 24 kHz audio."""
+    from genvc_tpu_torch import infer
+    from genvc_tpu_torch.dsp.audio_io import read_wav, write_wav
+
+    rng = np.random.default_rng(7)
+    paths = {n: str(tmp_path / f"{n}.wav") for n in ("src", "src2", "ref")}
+    for n, sec in (("src", 1.0), ("src2", 2.0), ("ref", 1.0)):
+        write_wav(paths[n], (rng.standard_normal(int(24000 * sec)) * 0.1).astype(np.float32),
+                  24000)
+    common = ["--model_path", bundle, "--top_k", "1", "--device", "cpu"]
+    out = str(tmp_path / "out.wav")
+    assert infer.main(common + ["--src_wav", paths["src"], "--ref_audio", paths["ref"],
+                                "--output_path", out]) == 0
+    outs = [out]
+    stem = str(tmp_path / "batch.wav")
+    assert infer.main(common + ["--src_wavs", paths["src"], paths["src2"],
+                                "--ref_audios", paths["ref"], "--output_path", stem]) == 0
+    outs += [str(tmp_path / "batch_0.wav"), str(tmp_path / "batch_1.wav")]
+    streamed = [str(tmp_path / "s0.wav"), str(tmp_path / "s1.wav")]
+    assert infer.main(common + ["--src_wavs", paths["src"], paths["src2"], "--streaming",
+                                "--ref_audios", paths["ref"], paths["ref"],
+                                "--output_paths", *streamed]) == 0
+    for path in outs + streamed:
+        audio, sr = read_wav(path)
+        assert sr == 24000 and audio.shape[1] > 0
+
+
+@pytest.mark.parametrize("flags,item", [(["--num_beams", "2"], "A10"),
+                                        (["--num_beam_groups", "2"], "A10"),
+                                        (["--penalty_alpha", "0.6"], "A10"),
+                                        (["--serve", "4"], "A11"),
+                                        (["--quantize", "int8"], "A9")])
+def test_torch_infer_cli_refuses_modes_not_ported(flags, item, capsys):
+    from genvc_tpu_torch import infer
+
+    assert infer.main(flags) == 2
+    assert item in capsys.readouterr().err
