@@ -6,21 +6,27 @@ Phase 1 builds every hand-written kernel from ``genvc_tpu_torch/csrc`` (one
 ``nvcc`` per source, all in parallel), checks each against its plain PyTorch
 version at the shapes the paths give it, and times kernel, plain version and
 the library yardstick with CUDA events: K1 (cached decode attention; K2 is K1
-with L = 1) at the flagship decode shapes, K4 (flash-attention forward, O and
-LSE) at the latent pass's shapes.
+with L = 1) at the flagship decode shapes, K3 (the per-row cache write and
+attention of the serving pool: caches bit-equal to the plain version's, a row
+past the cache end untouched) at the pool's shapes, K4 (flash-attention
+forward, O and LSE) at the latent pass's shapes.
 
 Phase 2 runs a small f32 configuration on the card and on the CPU with the
-same weights: streaming, offline ``synthesize`` and ``synthesize_batch`` must
-give the same lengths and audio within 1e-3.
+same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
+2-slot ``StreamServer`` (three streams, one arriving mid-flight) must give the
+same lengths and audio within 1e-3.
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
 256 ch; default HiFi-GAN) with seeded random weights on the repo's sample
 wavs: ``synthesize_streaming`` (5 runs), ``synthesize`` on a 7.68 s source
-(two segments; 3 runs), and ``synthesize_batch`` / ``synthesize_streaming_batch``
-with 4 utterances (2 runs each), each after one warm-up. It checks the audio
-and that the kernels of each path were launched as often as the path says:
-K1 30 times per decode step, K4 30 times per latent pass.
+(two segments; 3 runs), ``synthesize_batch`` / ``synthesize_streaming_batch``
+with 4 utterances (2 runs each), each after one warm-up, and a ``StreamServer``
+of 8 slots draining 16 streams submitted at once (one warm-up drain, 2 timed).
+It checks the audio and that the kernels of each path were launched as often
+as the path says: K1 30 times per lockstep decode step, K4 30 times per
+latent pass, K3 30 times per per-row decode step of the server (and the
+others not at all there).
 
 Prints measurements on earlier lines, the kernel table as one JSON line, the
 GPU's name and power limit, and as the last line
@@ -214,6 +220,99 @@ def check_flash_attention(fa):
     return main
 
 
+def update_inputs(b, cache_dtype, q_dtype, seed):
+    """K3's inputs as the pool gives them: q / k_new / v_new strided views of
+    one fused projection, positions spread over the cache with rows at 0,
+    T - 1 and one past the end (an idle slot), the bias marking each row's
+    position valid."""
+    L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, 1, 3 * H * hd, generator=g, device="cuda").to(q_dtype)
+    q, kn, vn = (x.reshape(b, H, hd) for x in qkv.chunk(3, dim=-1))
+    ck = torch.randn(L, b, H, T, hd, generator=g, device="cuda").to(cache_dtype)
+    cv = torch.randn(L, b, H, T, hd, generator=g, device="cuda").to(cache_dtype)
+    pos = torch.randint(1, T - 1, (b,), generator=g, device="cuda")
+    pos[0], pos[1], pos[2] = 0, T - 1, T + 7
+    valid = torch.arange(T, device="cuda")[None, :] <= pos[:, None]
+    bias = torch.where(valid, 0.0, -1e9).float()
+    return q, kn, vn, ck, cv, bias, pos
+
+
+def _bits(x):
+    return x.view(torch.uint8)
+
+
+def check_decode_attention_update(da):
+    """K3 vs its plain version at the pool's shapes (B = 8 and 16 slots,
+    bf16 / e4m3 caches, bf16 q and one f32 q): ``out`` within TOL on layers
+    0, 13, 29; after each call both caches, every layer, bit-equal to the
+    plain version's, and the row past the cache end untouched. Also ``out``
+    against the cache write followed by K1 (the same arithmetic: expect 0).
+    Returns the timing record of the 8-slot bf16 configuration."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
+    main = None
+    cases = [(8, torch.bfloat16, torch.bfloat16), (16, torch.bfloat16, torch.bfloat16),
+             (8, torch.float8_e4m3fn, torch.bfloat16), (16, torch.float8_e4m3fn, torch.bfloat16),
+             (8, torch.bfloat16, torch.float32)]
+    for i, (b, cdt, qdt) in enumerate(cases):
+        q, kn, vn, ck, cv, bias, pos = update_inputs(b, cdt, qdt, seed=200 + i)
+        ck0 = ck.clone()
+        worst = worst_k1 = 0.0
+        for layer in (0, 13, L - 1):
+            pk, pv = ck.clone(), cv.clone()
+            got = da.decode_attention_update_layer(q, kn, vn, ck, cv, bias, pos, layer).float()
+            torch.cuda.synchronize()
+            want = da.decode_attention_update_layer_plain(q, kn, vn, pk, pv, bias, pos,
+                                                          layer).float()
+            if not (torch.equal(_bits(ck), _bits(pk)) and torch.equal(_bits(cv), _bits(pv))):
+                raise AssertionError(f"decode_attention_update B={b} cache={cdt} q={qdt} "
+                                     f"layer={layer}: caches differ from the plain version's")
+            if not torch.equal(_bits(ck[:, 2]), _bits(ck0[:, 2])):
+                raise AssertionError("decode_attention_update: the row past the cache "
+                                     "end was written")
+            err = (got - want).abs()
+            worst = max(worst, float(err.max()))
+            if not bool((err <= TOL + TOL * want.abs()).all()):
+                raise AssertionError(f"decode_attention_update B={b} cache={cdt} q={qdt} "
+                                     f"layer={layer}: max |err| {float(err.max())}")
+            k1 = da.decode_attention_layer(q.contiguous(), ck, cv, bias, layer).float()
+            worst_k1 = max(worst_k1, float((got - k1).abs().max()))
+        lidx = iter(range(10 ** 9))
+        ms = time_ms(lambda: da.decode_attention_update_layer(q, kn, vn, ck, cv, bias, pos,
+                                                              next(lidx) % L))
+        plain_ms = time_ms(lambda: da.decode_attention_update_layer_plain(
+            q, kn, vn, ck, cv, bias, pos, next(lidx) % L), iters=50)
+        lib_ms = None
+        if cdt == torch.bfloat16 and qdt == torch.bfloat16:
+            rows = torch.arange(b, device="cuda")
+            inpos = pos.clamp(max=T - 1)  # index_put_ asserts past the end
+            q4, m4 = q[:, :, None, :], bias[:, None, None, :].to(torch.bfloat16)
+
+            def lib_call():
+                layer = next(lidx) % L
+                ck[layer, rows, :, inpos] = kn
+                cv[layer, rows, :, inpos] = vn
+                return sdpa(q4, ck[layer], cv[layer], attn_mask=m4)
+            lib_ms = time_ms(lib_call)
+        qe = q.element_size()
+        n_bytes = (2 * b * H * T * hd * ck.element_size() + 2 * b * H * hd * ck.element_size()
+                   + 4 * b * H * hd * qe + bias.numel() * 4 + pos.numel() * pos.element_size())
+        flops = 4 * b * H * T * hd
+        rec = {"B": b, "cache": str(cdt).replace("torch.", ""),
+               "q": str(qdt).replace("torch.", ""), "max_abs_err": worst, "tol": TOL,
+               "max_abs_err_vs_write_then_k1": worst_k1,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_call": "index_put_ of k and v + scaled_dot_product_attention",
+               "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+               "bound_by": "bytes", "bytes": n_bytes}
+        print("decode_attention_update_layer " + json.dumps(rec), flush=True)
+        if i == 0:
+            main = rec
+    return main
+
+
 def small_config(pipeline):
     cfg = pipeline.flagship_config()
     ma = cfg.model_args
@@ -225,10 +324,22 @@ def small_config(pipeline):
     return cfg
 
 
-def check_small_against_cpu(pipeline, fa, src, ref, ref16):
+def serve(server_cls, pipe, srcs, refs, **kw):
+    """All streams through a server; the ones after the first two are
+    submitted after the first step (mid-flight). Returns the waveforms."""
+    server = server_cls(pipe, **kw)
+    sids = [server.submit(s, r) for s, r in zip(srcs[:2], refs[:2])]
+    server.step()
+    sids += [server.submit(s, r) for s, r in zip(srcs[2:], refs[2:])]
+    server.drain()
+    return [server.result(sid)[0] for sid in sids]
+
+
+def check_small_against_cpu(pipeline, server_cls, fa, src, ref, ref16):
     """A small f32 configuration (hd = 16) on the card vs the same weights on
-    the CPU: greedy streaming, offline and batch (two rows of different
-    lengths) give the same lengths and audio within 1e-3."""
+    the CPU: greedy streaming, offline, batch (two rows of different lengths)
+    and a 2-slot server (first window 4, three streams, the third arriving
+    after the first step) give the same lengths and audio within 1e-3."""
     cfg = small_config(pipeline)
     tree = pipeline.random_tree(cfg, seed=1, device="cpu", contentvec_layers=2)
     runs = {
@@ -236,6 +347,9 @@ def check_small_against_cpu(pipeline, fa, src, ref, ref16):
         "offline": lambda p: [p.synthesize(src[:, :24000], ref)],
         "batch": lambda p: p.synthesize_batch([src[:, :24000], ref16[:, :40000]],
                                               [ref, ref[:, :48000]]),
+        "server": lambda p: serve(server_cls, p, [src[:, :16000], ref16[:, :40000],
+                                                  src[:, 8000:20000]],
+                                  [ref, ref[:, :48000], ref], slots=2, first_window=4),
     }
     outs = {}
     for dev in ("cpu", "cuda"):
@@ -244,7 +358,7 @@ def check_small_against_cpu(pipeline, fa, src, ref, ref16):
         for name, run in runs.items():
             fa.flash_attention.launches = 0
             outs[name, dev] = run(pipe)
-            if dev == "cuda" and name != "streaming" and fa.flash_attention.launches == 0:
+            if dev == "cuda" and name in ("offline", "batch") and fa.flash_attention.launches == 0:
                 raise AssertionError(f"small-config {name}: the flash kernel never ran")
     for name in runs:
         for a, b in zip(outs[name, "cpu"], outs[name, "cuda"]):
@@ -273,18 +387,76 @@ class Launches:
 
     def __enter__(self):
         self.da.decode_attention_layer.launches = 0
+        self.da.decode_attention_update_layer.launches = 0
         self.fa.flash_attention.launches = 0
         return self
 
     def __exit__(self, *exc):
         self.k1 = self.da.decode_attention_layer.launches
+        self.k3 = self.da.decode_attention_update_layer.launches
         self.k4 = self.fa.flash_attention.launches
         return False
+
+    def counts(self):
+        return {"decode_attention_layer": self.k1, "decode_attention_update_layer": self.k3,
+                "flash_attention": self.k4}
 
 
 def expect(name, got, want):
     if got != want or want == 0:
         raise AssertionError(f"{name}: {got} launches, expected {want} (> 0)")
+
+
+def expect_none(path, n, kernels):
+    """Kernels that are not on ``path`` were not launched during it."""
+    for k in kernels:
+        if getattr(n, k):
+            raise AssertionError(f"{path}: {k.upper()} launched {getattr(n, k)} times")
+
+
+def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
+    """``StreamServer(pipe, slots=8)`` with its defaults (first window 4,
+    waves of up to 4, 2 ticks in flight) drains all streams, submitted at
+    one instant; run 0 (after ``warmup_admission``) warms up. Per drain:
+    aggregate RTF (wall time over the total source), first-audio latency
+    p50 / p95 from that instant, pool counters and launches. Checks the
+    audio, that every stream completed, and that the server launched K3 30
+    times per per-row decode step and neither K1 nor K4. Returns the last
+    drain's launch counts."""
+    import numpy as np
+
+    layers = pipe.gpt_cfg.layers
+    total_s = sum(s.shape[-1] for s in srcs) / 16000
+    for run in range(runs):
+        server = server_cls(pipe, slots=8)
+        if run == 0:
+            server.warmup_admission()
+        with Launches(da, fa) as n:
+            t0 = time.perf_counter()
+            sids = [server.submit(s, r, arrival_t=t0) for s, r in zip(srcs, refs)]
+            server.drain()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        m = server.metrics()
+        results = [server.result(sid) for sid in sids]
+        for wav, _ in results:
+            check_audio("serving", wav, pipe.sample_rate)
+        if m["completed"] != len(srcs):
+            raise AssertionError(f"serving: {m['completed']} of {len(srcs)} streams completed")
+        expect("serving K3", n.k3, layers * m["decode_steps"])
+        expect_none("serving", n, ("k1", "k4"))
+        lat_ms = np.asarray([stats["latency_s"] for _, stats in results]) * 1e3
+        print("serving " + json.dumps({
+            "run": run, "warm_up": run == 0, "streams": len(srcs), "slots": server.slots,
+            "source_s": total_s, "wall_s": elapsed, "aggregate_rtf": elapsed / total_s,
+            "first_audio_ms_p50": float(np.percentile(lat_ms, 50)),
+            "first_audio_ms_p95": float(np.percentile(lat_ms, 95)),
+            "ticks": m["ticks"], "mean_occupancy": m["mean_occupancy"],
+            "admissions": m["admissions"], "decode_steps": m["decode_steps"],
+            "k1_launches": n.k1, "k3_launches": n.k3, "k4_launches": n.k4,
+            "gpu": gpu}), flush=True)
+    return n.counts()
 
 
 def main() -> int:
@@ -298,6 +470,7 @@ def main() -> int:
     from genvc_tpu_torch.inference import pipeline
     from genvc_tpu_torch.ops import decode_attention as da
     from genvc_tpu_torch.ops import flash_attention as fa
+    from genvc_tpu_torch.serving.server import StreamServer
 
     begin = time.perf_counter()
     gpu = gpu_line()
@@ -314,6 +487,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
     k1 = check_decode_attention(da)
+    k3 = check_decode_attention_update(da)
     k4 = check_flash_attention(fa)
 
     # ---- phase 2: a small f32 configuration, card vs CPU
@@ -323,7 +497,7 @@ def main() -> int:
     ref2 = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 24000)
     if any(x is None for x in (src, ref, src2, ref2)):
         raise RuntimeError("could not load the sample wavs")
-    check_small_against_cpu(pipeline, fa, src, ref, src2)
+    check_small_against_cpu(pipeline, StreamServer, fa, src, ref, src2)
 
     # ---- phase 3: every path at flagship width, bf16
     cfg = pipeline.flagship_config()
@@ -345,12 +519,13 @@ def main() -> int:
         steps = pipe.last_timing["decode_steps"]
         check_audio("streaming", wav, pipe.sample_rate)
         expect("streaming K1", n.k1, layers * steps)
+        expect_none("streaming", n, ("k3", "k4"))
         lat.append(latency * 1e3)
         rtf.append(r)
         print(f"streaming run {run}: {wav.size} samples, first-chunk latency "
               f"{latency * 1e3:.2f} ms, RTF {r:.4f}, decode steps {steps}, "
               f"K1 launches {n.k1}", flush=True)
-    by_path["streaming"] = {"decode_attention_layer": n.k1, "flash_attention": n.k4}
+    by_path["streaming"] = n.counts()
     print(json.dumps({"streaming": {"latency_ms_median": statistics.median(lat),
                                     "rtf_median": statistics.median(rtf),
                                     "runs": len(lat), "gpu": gpu}}), flush=True)
@@ -369,12 +544,13 @@ def main() -> int:
         check_audio("offline", wav, pipe.sample_rate)
         expect("offline K1", n.k1, layers * timing["decode_steps"])
         expect("offline K4", n.k4, layers * timing["latent_passes"])
+        expect_none("offline", n, ("k3",))
         rtf.append(elapsed / seconds)
         print(f"offline run {run}: {seconds:.2f} s source, {wav.size} samples, "
               f"{elapsed * 1e3:.1f} ms, RTF {rtf[-1]:.4f}, decode steps "
               f"{timing['decode_steps']}, latent passes {timing['latent_passes']}, "
               f"K1 launches {n.k1}, K4 launches {n.k4}", flush=True)
-    by_path["offline"] = {"decode_attention_layer": n.k1, "flash_attention": n.k4}
+    by_path["offline"] = n.counts()
     print(json.dumps({"offline": {"rtf_median": statistics.median(rtf), "runs": len(rtf),
                                   "source_s": seconds, "gpu": gpu}}), flush=True)
 
@@ -399,15 +575,19 @@ def main() -> int:
             expect(f"{name} K1", n.k1, layers * timing["decode_steps"])
             if name == "batch":
                 expect(f"{name} K4", n.k4, layers * timing["latent_passes"])
+            expect_none(name, n, ("k3",) if name == "batch" else ("k3", "k4"))
             rtf.append(elapsed / total_s)
             print(f"{name} run {run}: 4 utterances, {total_s:.2f} s of source, "
                   f"{elapsed * 1e3:.1f} ms, aggregate RTF {rtf[-1]:.4f}, decode steps "
                   f"{timing['decode_steps']}, K1 launches {n.k1}, K4 launches {n.k4}",
                   flush=True)
-        by_path[name] = {"decode_attention_layer": n.k1, "flash_attention": n.k4}
+        by_path[name] = n.counts()
         print(json.dumps({name: {"aggregate_rtf_median": statistics.median(rtf),
                                  "runs": len(rtf), "utterances": len(srcs),
                                  "source_s": total_s, "gpu": gpu}}), flush=True)
+    # serving: 16 streams (the batch's 4 sources x 4) into 8 slots at once
+    by_path["serving"] = check_serving(pipe, StreamServer, srcs * 4, [ref, ref2] * 8,
+                                       da, fa, gpu)
     print(f"chip_smoke: {time.perf_counter() - begin:.1f} s", flush=True)
 
     def launches(kernel):
@@ -422,6 +602,14 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": "bytes",
         "library_ms": k1["library_ms"]}, {
+        "name": "decode_attention_update_layer", "route": "cuda",
+        "source": "genvc_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "genvc_tpu/ops/decode_attention.py:281",
+        "launches": sum(launches("decode_attention_update_layer").values()),
+        "launches_by_path": launches("decode_attention_update_layer"),
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": "bytes",
+        "library_ms": k3["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "genvc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "genvc_tpu/ops/flash_attention.py:134",

@@ -10,12 +10,14 @@ Usage:
     # batch: N sources in one lockstep pass (one reference is broadcast)
     python -m genvc_tpu_torch.infer --model_path GenVC_small.pth \
         --src_wavs a.wav b.wav --ref_audios r.wav \
-        [--output_paths a_out.wav b_out.wav] [--streaming]
+        [--output_paths a_out.wav b_out.wav] [--streaming] [--serve SLOTS]
 
 Without ``--streaming`` the conversion is offline (``synthesize`` /
 ``synthesize_batch``); with it, streamed (``synthesize_streaming`` /
-``synthesize_streaming_batch``). Flags of modes not yet ported exit with
-code 2.
+``synthesize_streaming_batch``, or with ``--serve SLOTS`` a continuous-batching
+``StreamServer`` of SLOTS decode slots, which prints each stream's latency and
+RTF and the pool's counters). Flags of modes not yet ported, and ``--serve``
+without ``--src_wavs --streaming``, exit with code 2.
 """
 
 from __future__ import annotations
@@ -25,11 +27,14 @@ import dataclasses
 import os
 import sys
 
-# flags of modes the port does not have yet: (test on the parsed args, message)
+# flags of modes the port does not have yet, and --serve without the mode it
+# serves: (test on the parsed args, message)
 _NOT_PORTED = [
     (lambda a: a.num_beams > 1 or a.num_beam_groups > 1 or a.penalty_alpha > 0,
      "beam, group-beam and contrastive decoding are not ported yet (ROADMAP A10)"),
-    (lambda a: a.serve > 0, "--serve (StreamServer) is not ported yet (ROADMAP A11)"),
+    (lambda a: a.serve > 0 and not (a.src_wavs and a.streaming),
+     "--serve SLOTS takes effect with --src_wavs and --streaming (the "
+     "StreamServer, ROADMAP A11)"),
     (lambda a: a.quantize is not None, "--quantize is not ported yet (ROADMAP A9)"),
 ]
 
@@ -59,7 +64,9 @@ def main(argv=None) -> int:
     parser.add_argument("--num_beams", type=int, default=1)
     parser.add_argument("--num_beam_groups", type=int, default=1)
     parser.add_argument("--penalty_alpha", type=float, default=0.0)
-    parser.add_argument("--serve", type=int, default=0, metavar="SLOTS")
+    parser.add_argument("--serve", type=int, default=0, metavar="SLOTS",
+                        help="with --src_wavs --streaming: convert through a "
+                             "continuous-batching StreamServer of SLOTS decode slots")
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"])
     args = parser.parse_args(argv)
 
@@ -100,7 +107,9 @@ def main(argv=None) -> int:
         if any(x is None for x in srcs + refs):
             print("failed to load audio", file=sys.stderr)
             return 1
-        if args.streaming:
+        if args.serve:
+            wavs = _serve(pipe, srcs, refs, args.serve)
+        elif args.streaming:
             wavs, _, _ = pipe.synthesize_streaming_batch(srcs, refs)
         else:
             wavs = pipe.synthesize_batch(srcs, refs)
@@ -129,6 +138,26 @@ def main(argv=None) -> int:
     write_wav(args.output_path, wav, pipe.sample_rate)
     print(f"wrote {args.output_path}")
     return 0
+
+
+def _serve(pipe, srcs, refs, slots: int):
+    """All sources through a ``StreamServer``; prints per-stream latency and
+    RTF and the pool line. Returns the waveforms in source order."""
+    from genvc_tpu_torch.serving.server import StreamServer
+
+    server = StreamServer(pipe, slots=slots)
+    sids = [server.submit(s, r) for s, r in zip(srcs, refs)]
+    server.drain()
+    wavs = []
+    for sid in sids:
+        wav, stats = server.result(sid)
+        wavs.append(wav)
+        rtf = f"{stats['rtf']:.3f}" if stats["rtf"] is not None else "n/a"
+        print(f"stream {sid}: latency {(stats['latency_s'] or 0) * 1000:.0f} ms, rtf {rtf}")
+    m = server.metrics()
+    print(f"pool: {m['ticks']} ticks, mean occupancy {m['mean_occupancy']:.2f}/"
+          f"{m['slots']}, {m['completed']} completed")
+    return wavs
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Voice conversion, streaming and offline (``genvc_tpu/inference/pipeline.py``
-without the beam, contrastive, quantized and serving modes).
+without the beam, contrastive and quantized modes; the serving pool is
+``serving.server.StreamServer``, built on ``stream_chunk_batch`` here).
 
 The chain: resample the source to 16 kHz; ContentVec -> content-dVAE codes
 per 6 s segment; Perceiver speaker latents from the reference's mel; GPT
@@ -7,8 +8,8 @@ prefix + prefill; then
 
 * streaming (``synthesize_streaming``, and ``synthesize_streaming_batch`` for
   B utterances in lockstep): decode in windows (the first of
-  ``FIRST_CHUNK_TOKENS`` = 4 tokens: the prefill latent plus 3 decode steps;
-  later ones 8); each window's latents x4-interpolated and vocoded by
+  ``first_chunk_tokens`` tokens, 4 by default: the prefill latent plus 3
+  decode steps; later ones 8); each window's latents x4-interpolated and vocoded by
   HiFi-GAN with its own conv context; windows joined with a 1024-sample
   crossfade;
 * offline (``synthesize``, and ``synthesize_batch``): decode each segment to
@@ -47,7 +48,6 @@ COND_MAX_SECONDS = 30
 SEG_SECONDS = 6.0
 MIN_CHUNK_FRACTION = 0.32
 STREAM_CHUNK = 8
-FIRST_CHUNK_TOKENS = 4  # first emitted window: the prefill latent + 3 steps
 CROSSFADE = 1024
 TEXT_WIDTH = 80  # static content-code width (6 s @ 12.5 Hz = 75 codes)
 # KV-cache headroom past the generation cap: the JAX streaming loop's overshoot of
@@ -98,6 +98,10 @@ class GenVCPipeline:
         # token; cap new tokens at ratio x content codes (a trained model
         # emits ~1.875 audio codes per content code)
         self.gen_cap_tokens_per_code: float | None = None
+        # first emitted window of a stream, in AR tokens (the latency knob):
+        # 4 is the prefill latent plus 3 decode steps; later windows keep the
+        # 8-token cadence; STREAM_CHUNK mirrors the reference exactly
+        self.first_chunk_tokens: int = 4
         self.last_timing: dict = {}
         self._cond_latent = None
 
@@ -240,18 +244,23 @@ class GenVCPipeline:
         return np.stack(segs), t_reals, active
 
     @torch.inference_mode()
-    def _start_segment(self, segs: np.ndarray, t_reals, cond):
+    def _start_segment(self, segs: np.ndarray, t_reals, cond, per_row: bool = False,
+                       row_params=None):
         """Content codes + prefix + prefill for B segments (B, 96000) with
         speaker latents ``cond`` (B, 32, D); returns (state, first tokens
-        (B,), first latents (B, D), codes (B, TEXT_WIDTH), n_codes list)."""
+        (B,), first latents (B, D), codes (B, TEXT_WIDTH), n_codes list).
+        ``per_row`` gives the state per-row positions (a serving pool's
+        admission rows); ``row_params`` samples each row under its own
+        config."""
         codes, n_codes = self.extract_content_codes_batch(segs, t_reals)
         text_len = torch.tensor(n_codes, device=self.device)
         prefix, valid = gpt_model.build_prefix_emb(self.gpt, cond, codes, text_len)
         state = engine.init_state(self.gpt_cfg, self._prefix_width, len(n_codes),
                                   self.device, cache_dtype=self.cache_dtype,
                                   generator=self.generator,
-                                  gen_tokens=self._cache_gen_tokens())
-        tok0, lat0 = engine.prefill(self.gpt, state, prefix, valid, self.sampler)
+                                  gen_tokens=self._cache_gen_tokens(), per_row=per_row)
+        tok0, lat0 = engine.prefill(self.gpt, state, prefix, valid, self.sampler,
+                                    row_params)
         return state, tok0, lat0, codes, n_codes
 
     @torch.inference_mode()
@@ -284,11 +293,31 @@ class GenVCPipeline:
         vlen = None if valid is None else valid * self.hifigan_scale_factor
         return self.hifigan(x, valid_len=vlen)[:, 0]
 
-    def _vocode_tail(self, all_lats, start: int, rem: int, win: int):
+    def _vocode_tail(self, all_lats, row: int, start: int, rem: int, win: int):
+        """The end of a segment: ``rem`` latents of row ``row`` of ``all_lats``
+        (B, W, D) from ``start``, vocoded in a ``win``-wide window masked past
+        ``rem`` (the JAX ``vocode_tail_fn``). The buffer reads as zeros past
+        its end, as JAX's ``+win`` pad, so ``start + win`` may run past W.
+        Returns (rem * 1024,) audio."""
         lat = torch.zeros(1, win, all_lats.shape[-1], device=all_lats.device)
-        lat[:, :rem] = all_lats[:, start : start + rem]
+        src = all_lats[row, start : start + rem]
+        lat[0, : src.shape[0]] = src
         wav = self.vocode(lat, valid=rem)
         return wav[0, : rem * self.gpt_cfg.code_stride_len]
+
+    def stream_chunk_batch(self, state, k: int, carry, win: int = STREAM_CHUNK,
+                           row_params=None):
+        """``k`` decode steps on ``state`` (in place), then every row's
+        complete ``win``-latent windows of [carry | new latents] vocoded (the
+        JAX ``stream_chunk_batch_fn``, one pool tick). ``carry`` (B, c, D)
+        holds latents carried from the last call; ``row_params`` (dict of
+        (B,) tensors) only when some row has its own sampler. Returns
+        (tokens (B, k), all latents (B, c + k, D), finished-before-step
+        (B, k), audio (B, (c + k) // win, win * 1024))."""
+        toks, lats, pre_fin = engine.decode_chunk(self.gpt, state, self.sampler,
+                                                  chunk=k, row_params=row_params)
+        all_lats = torch.cat([carry, lats], dim=1)
+        return toks, all_lats, pre_fin, self.batch_window_vocode(all_lats, win)
 
     def batch_window_vocode(self, all_lats, win: int):
         """(B, W, D) latents -> (B, W // win, win * 1024) audio: each row's
@@ -413,7 +442,7 @@ class GenVCPipeline:
             if self._cond_latent is None:
                 with record_function("genvc.cond_latents"):
                     self._cond_latent = self.get_gpt_cond_latents(ref_audio)
-                win = FIRST_CHUNK_TOKENS
+                win = max(1, min(self.first_chunk_tokens, csz))
             else:
                 win = csz
             with record_function("genvc.prefill"):
@@ -433,7 +462,7 @@ class GenVCPipeline:
                 if first_chunk and bool(pre_fin[0, 0]):
                     # EOS on the prefill-sampled token: vocode that latent only
                     with record_function("genvc.vocode"):
-                        emit(self._vocode_tail(all_lats, 0, 1, win))
+                        emit(self._vocode_tail(all_lats, 0, 0, 1, win))
                     break
                 first_chunk = False
                 eos_j, _, full, rem = window_accounting(
@@ -444,7 +473,7 @@ class GenVCPipeline:
                         for w in range(full):
                             emit(wavs[w])
                     if eos_j is not None and rem > 0:
-                        emit(self._vocode_tail(all_lats, full * win, rem, win))
+                        emit(self._vocode_tail(all_lats, 0, full * win, rem, win))
                 if eos_j is not None:
                     break
                 n_total += k
@@ -489,7 +518,7 @@ class GenVCPipeline:
             state, _, lat0, _, n_codes = self._start_segment(segs, t_reals, conds)
             caps = [self._max_new(n) if a else 1 for n, a in zip(n_codes, active)]
             done = [not a for a in active]
-            win = FIRST_CHUNK_TOKENS if r == 0 else csz
+            win = max(1, min(self.first_chunk_tokens, csz)) if r == 0 else csz
             carry, carry_n, k = lat0[:, None, :], 1, win - 1
             n_total = 1
             first_call = True
@@ -505,7 +534,7 @@ class GenVCPipeline:
                         continue
                     if first_call and bool(pre_fin_np[i, 0]):
                         # EOS on the prefill-sampled token: vocode that latent only
-                        emit(i, self._vocode_tail(all_lats[i : i + 1], 0, 1, win))
+                        emit(i, self._vocode_tail(all_lats, i, 0, 1, win))
                         done[i] = True
                         continue
                     eos_j, _, full, rem = window_accounting(
@@ -520,8 +549,7 @@ class GenVCPipeline:
                             emit(i, wavs[j, w])
                 for i, (full, rem) in ends.items():
                     if rem:
-                        emit(i, self._vocode_tail(all_lats[i : i + 1], full * win,
-                                                  rem, win))
+                        emit(i, self._vocode_tail(all_lats, i, full * win, rem, win))
                 first_call = False
                 n_total += k
                 carry = all_lats[:, :0]

@@ -63,6 +63,37 @@ def process_logits(logits, seen, *, repetition_penalty: float = 1.0,
     return apply_top_p(logits, top_p)
 
 
+def process_logits_per_row(logits, seen, repetition_penalty, temperature, top_k, top_p):
+    """:func:`process_logits` with each row's own parameters, all (B,)
+    tensors (the decode config of each stream of a serving pool).
+    ``top_k <= 0`` and ``top_p >= 1`` keep every token exactly; penalty 1 and
+    temperature 1 are identities by arithmetic. Equals the scalar chain when
+    every row holds the same config."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    p = repetition_penalty.float()[:, None]
+    penalized = torch.where(logits < 0, logits * p, logits / p)
+    logits = torch.where(seen, penalized, logits)
+    logits = logits / temperature.float()[:, None]
+
+    # top-k: keep values >= the k-th largest (ties kept, as the scalar rule)
+    k = torch.where(top_k <= 0, torch.full_like(top_k, v), top_k).clamp(1, v)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, 1, (k - 1).long()[:, None])
+    logits = logits.masked_fill(logits < kth, float("-inf"))
+
+    # top-p: rows with p >= 1 keep everything (not through cum > 0, which
+    # float32 softmax underflow could fail far below the row max)
+    sorted_asc = torch.sort(logits, dim=-1).values
+    cum = torch.cumsum(torch.softmax(sorted_asc, dim=-1), dim=-1)
+    p_row = top_p.float()[:, None]
+    sorted_keep = (cum > (1.0 - p_row)) | (p_row >= 1.0)
+    sorted_keep[..., -1] = True
+    cutoff = torch.where(sorted_keep, sorted_asc, torch.full_like(sorted_asc, float("inf")))
+    cutoff = cutoff.min(dim=-1, keepdim=True).values
+    return logits.masked_fill(logits < cutoff, float("-inf"))
+
+
 def sample_token(logits, generator: torch.Generator | None = None, uniform=None):
     """Multinomial draw from processed logits; (B, V) -> (B,) int64.
 

@@ -1,6 +1,6 @@
 """Where the time of one flagship streaming run goes on the card.
 
-    python -m genvc_tpu_torch.profile_streaming [--runs 3]
+    python -m genvc_tpu_torch.profile_streaming [--runs 3] [--serving]
 
 Builds the flagship bf16 pipeline with seeded random weights (as
 ``chip_smoke.py`` does), warms it up, then traces ``--runs`` calls of
@@ -12,6 +12,12 @@ traced one), the wall time of each pipeline span
 (``genvc.cond_latents`` / ``genvc.prefill`` / ``genvc.decode`` /
 ``genvc.vocode``), kernels launched per decode step, and the kernels that
 take the most device time. The last line is one JSON summary.
+
+``--serving`` traces a ``StreamServer`` drain instead: 8 streams of the
+1.54 s sample (references alternating) submitted at once to an 8-slot pool,
+after a warm-up drain; its spans are ``genvc.admit`` (wave prefill and
+insertion), ``genvc.tick`` (enqueueing a pool tick) and ``genvc.fetch``
+(waiting for the oldest tick's results).
 """
 
 from __future__ import annotations
@@ -70,9 +76,26 @@ def analyse(prof, steps: int) -> dict:
     }
 
 
+def serving_call(pipe, src, ref, ref2):
+    """One drain of 8 streams into an 8-slot server; returns (first-audio
+    latency median s, aggregate RTF, decode steps)."""
+    from genvc_tpu_torch.serving.server import StreamServer
+
+    server = StreamServer(pipe, slots=8)
+    t0 = time.perf_counter()
+    sids = [server.submit(src, r, arrival_t=t0) for r in [ref, ref2] * 4]
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = statistics.median(server.result(sid)[1]["latency_s"] for sid in sids)
+    return lat, wall / (8 * src.shape[-1] / 16000), server.metrics()["decode_steps"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--serving", action="store_true",
+                    help="trace an 8-stream StreamServer drain instead")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
 
@@ -88,7 +111,16 @@ def main(argv=None) -> int:
     pipe.gen_cap_tokens_per_code = 1.875
     src = load_audio(os.path.join(REPO, "samples", "EF4_ENG_0112_1.wav"), 16000)
     ref = load_audio(os.path.join(REPO, "samples", "EM1_ENG_0037_1.wav"), 24000)
-    pipe.synthesize_streaming(src, ref, verbose=False)  # warm-up
+    ref2 = load_audio(os.path.join(REPO, "samples", "EF4_ENG_0112_1.wav"), 24000)
+
+    def call():
+        """(latency s, RTF, decode steps) of one traced unit of work."""
+        if args.serving:
+            return serving_call(pipe, src, ref, ref2)
+        _, latency, rtf = pipe.synthesize_streaming(src, ref, verbose=False)
+        return latency, rtf, pipe.last_timing["decode_steps"]
+
+    call()  # warm-up
 
     results = []
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -96,24 +128,25 @@ def main(argv=None) -> int:
         # an untraced run first: the tracer's own cost inflates the wall time
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe.synthesize_streaming(src, ref, verbose=False)
+        call()
         torch.cuda.synchronize()
         untraced_ms = (time.perf_counter() - t0) * 1e3
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            _, latency, rtf = pipe.synthesize_streaming(src, ref, verbose=False)
+            latency, rtf, steps = call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        res = analyse(prof, pipe.last_timing["decode_steps"])
+        res = analyse(prof, steps)
         res.update(traced_wall_ms=wall_ms, untraced_wall_ms=untraced_ms,
-                   traced_latency_ms=latency * 1e3, traced_rtf=rtf,
-                   decode_steps=pipe.last_timing["decode_steps"],
+                   traced_latency_ms=latency * 1e3, traced_rtf=rtf, decode_steps=steps,
                    idle_share_traced=1.0 - res["device_busy_ms"] / wall_ms,
                    idle_share_untraced=1.0 - res["device_busy_ms"] / untraced_ms)
         results.append(res)
         print(f"run {run}: " + json.dumps(res), flush=True)
 
     summary = {"gpu": gpu, "runs": len(results),
+               "path": "serving, 8 streams x 1.54 s, 8 slots" if args.serving
+               else "streaming, 1.54 s",
                "untraced_wall_ms_median": statistics.median(r["untraced_wall_ms"] for r in results),
                "traced_wall_ms_median": statistics.median(r["traced_wall_ms"] for r in results),
                "device_busy_ms_median": statistics.median(r["device_busy_ms"] for r in results),

@@ -54,6 +54,25 @@ def test_torch_streaming_matches_jax(pipes, seconds):
     assert latency > 0 and rtf > 0
 
 
+def test_torch_streaming_first_window_of_8_matches_jax(pipes):
+    """``first_chunk_tokens = 8`` (the reference's cadence from the first
+    window on) on both sides: same length, atol 1e-3."""
+    jp, tp = pipes
+    rng = np.random.default_rng(9)
+    src = (rng.standard_normal((1, 24000)) * 0.1).astype(np.float32)
+    ref = (rng.standard_normal((1, 24000)) * 0.1).astype(np.float32)
+    assert tp.first_chunk_tokens == jp.first_chunk_tokens == 4
+    try:
+        jp.first_chunk_tokens = tp.first_chunk_tokens = 8
+        want, _, _ = jp.synthesize_streaming(src, ref, verbose=False)
+        got, _, _ = tp.synthesize_streaming(src, ref, verbose=False)
+    finally:
+        jp.first_chunk_tokens = tp.first_chunk_tokens = 4
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert tp.last_timing["decode_steps"] % 8 == 7  # 7 steps, then windows of 8
+
+
 def test_torch_streaming_eos_on_prefill_token(pipes):
     """A stop token sampled at prefill vocodes only its latent (1024 samples,
     all held back for the crossfade), as the JAX pipeline does."""
@@ -258,10 +277,33 @@ def test_torch_infer_cli_offline_and_batch(bundle, tmp_path):
 @pytest.mark.parametrize("flags,item", [(["--num_beams", "2"], "A10"),
                                         (["--num_beam_groups", "2"], "A10"),
                                         (["--penalty_alpha", "0.6"], "A10"),
-                                        (["--serve", "4"], "A11"),
+                                        (["--serve", "4"], "A11"),  # needs --src_wavs --streaming
                                         (["--quantize", "int8"], "A9")])
 def test_torch_infer_cli_refuses_modes_not_ported(flags, item, capsys):
     from genvc_tpu_torch import infer
 
     assert infer.main(flags) == 2
     assert item in capsys.readouterr().err
+
+
+def test_torch_infer_cli_serve(bundle, tmp_path, capsys):
+    """``--src_wavs a b --streaming --serve 2``: both outputs through the
+    StreamServer, with per-stream latency / RTF and the pool line."""
+    from genvc_tpu_torch import infer
+    from genvc_tpu_torch.dsp.audio_io import read_wav, write_wav
+
+    rng = np.random.default_rng(8)
+    paths = [str(tmp_path / f"{n}.wav") for n in ("a", "b", "ref")]
+    for path, sec in zip(paths, (1.0, 2.0, 1.0)):
+        write_wav(path, (rng.standard_normal(int(24000 * sec)) * 0.1).astype(np.float32),
+                  24000)
+    outs = [str(tmp_path / "a_out.wav"), str(tmp_path / "b_out.wav")]
+    assert infer.main(["--model_path", bundle, "--top_k", "1", "--device", "cpu",
+                       "--src_wavs", paths[0], paths[1], "--ref_audios", paths[2],
+                       "--streaming", "--serve", "2", "--output_paths", *outs]) == 0
+    printed = capsys.readouterr().out
+    assert "stream 0: latency" in printed and "stream 1: latency" in printed
+    assert "pool:" in printed and "2 completed" in printed
+    for path in outs:
+        audio, sr = read_wav(path)
+        assert sr == 24000 and audio.shape[1] > 0
