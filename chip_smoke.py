@@ -9,12 +9,14 @@ the library yardstick with CUDA events: K1 (cached decode attention; K2 is K1
 with L = 1) at the flagship decode shapes, K3 (the per-row cache write and
 attention of the serving pool: caches bit-equal to the plain version's, a row
 past the cache end untouched) at the pool's shapes, K4 (flash-attention
-forward, O and LSE) at the latent pass's shapes.
+forward, O and LSE) at the latent pass's shapes, K5 / K6 (flash-attention
+backward: dq; dk and dv) at the training step's shapes.
 
 Phase 2 runs a small f32 configuration on the card and on the CPU with the
 same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
 2-slot ``StreamServer`` (three streams, one arriving mid-flight) must give the
-same lengths and audio within 1e-3.
+same lengths and audio within 1e-3; two GPT training steps (K4 / K5 / K6 on
+the card) must give the same codes, losses, gradient norms and parameters.
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
@@ -27,6 +29,15 @@ It checks the audio and that the kernels of each path were launched as often
 as the path says: K1 30 times per lockstep decode step, K4 30 times per
 latent pass, K3 30 times per per-row decode step of the server (and the
 others not at all there).
+
+Phase 4 trains the GPT at flagship width (stage 3, bf16 on f32 masters,
+attention kernels K4 forward, K5 / K6 backward) through
+``train.runner.run_gpt_training`` on wavs tiled from the samples, B = 8 with
+50-token texts: 1 warm-up and 5 timed steps (K4 = K5 = K6 = 30 a step, K1 =
+K3 = 0), a checkpoint written and resumed for one more step; then, on one
+fixed batch, steps timed with a device sync (losses must fall), the same
+step with ``attn_impl="xla"`` in turns with the kernels', and one step at the
+recipe's B = 24 with 100-token texts for peak memory.
 
 Prints measurements on earlier lines, the kernel table as one JSON line, the
 GPU's name and power limit, and as the last line
@@ -41,6 +52,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -220,6 +232,98 @@ def check_flash_attention(fa):
     return main
 
 
+# K5 / K6 vs the plain backward computed in f32 from the same inputs: the
+# kernels sum in f32 in a fixed order; a bf16 dq / dk / dv is then rounded to
+# bf16 (2^-8 relative) while the f32 reference is not.
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# (B, T, hd, dtype, masked key tail of the last row, masked leading keys of
+# row 0, row 0 all masked, causal): the training step's shape (32 cond + 52
+# text + 100 audio positions at 50-token texts), the recipe's 100-token
+# maximum, a masked tail, f32 with rows before the first valid key, the small
+# configuration's hd = 16, and non-causal with a row that sees no valid key
+BWD_CASES = [(8, 184, 256, torch.bfloat16, 0, 0, False, True),
+             (8, 328, 256, torch.bfloat16, 0, 0, False, True),
+             (8, 184, 256, torch.bfloat16, 37, 0, False, True),
+             (2, 184, 256, torch.float32, 37, 5, False, True),
+             (2, 184, 16, torch.float32, 23, 0, False, True),
+             (2, 136, 64, torch.float32, 11, 0, True, False)]
+
+
+def check_flash_backward(fa):
+    """K5 and K6 vs the plain backward (f32, same inputs) at the training
+    step's shapes: q, k, v strided views of the fused projection, dO the
+    (B, H, T, hd) view of a (B, T, H, hd) gradient, as the step gives them.
+    Times K5, K6, their wrapper (with D = rowsum(dO * O)), the plain version
+    and SDPA's backward (additive mask, autograd, forward time subtracted).
+    Returns the records of the main shape (B=8, T=184, bf16) for K5 and K6."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    main = None
+    for i, (b, t, hd, dt, tail, lead, unseen, causal) in enumerate(BWD_CASES):
+        h = 4
+        q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=300 + i)
+        if lead:
+            valid[0, :lead] = False
+        if unseen:
+            valid[0] = False
+        g = torch.Generator(device="cuda").manual_seed(400 + i)
+        do = torch.randn(b, t, h, hd, generator=g, device="cuda").to(dt).transpose(1, 2)
+        out, lse = fa.flash_attention_fwd(q, k, v, valid, None, causal)
+        got = fa.flash_attention_bwd(q, k, v, valid, out, lse, do, None, causal)
+        torch.cuda.synchronize()
+        f = [x.float() for x in (q, k, v, out, do)]
+        want = fa.flash_attention_bwd_plain(f[0], f[1], f[2], valid, f[3], lse, f[4],
+                                            None, causal)
+        tol = BWD_TOL[dt]
+        errs = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - w).abs()
+            errs[name] = float(err.max())
+            if not bool((err <= tol + tol * w.abs()).all()):
+                raise AssertionError(f"flash_attention backward B={b} T={t} hd={hd} {dt} "
+                                     f"tail={tail} lead={lead} unseen={unseen} "
+                                     f"causal={causal}: {name} max |err| {errs[name]}")
+        lse_c, dd, g_, valid_c, qkv_st, g_st = fa._bwd_args(q, k, v, valid, out, lse, do)
+        args = (q, k, v, valid_c, lse_c, dd, g_, 1.0 / hd ** 0.5, causal, qkv_st, g_st)
+        dq_ms = time_ms(lambda: fa.flash_attention_dq(*args))
+        dkdv_ms = time_ms(lambda: fa.flash_attention_dkdv(*args))
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, valid, out, lse, do, None, causal))
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, valid, out, lse, do,
+                                                                None, causal), iters=20)
+        ok = valid[:, None, None, :]
+        if causal:
+            ok = ok & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+        bias = torch.where(ok, 0.0, -1e9).to(dt)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fwd_ms = time_ms(lambda: sdpa(*leaves, attn_mask=bias), iters=50)
+        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa(*leaves, attn_mask=bias), leaves, do),
+                         iters=50) - fwd_ms
+        elt, n, bht = q.element_size(), b * h * t * hd, b * h * t
+        frac = 0.5 if causal else 1.0
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        # inputs q, k, v, dO, LSE, D and the key mask read once; outputs once
+        stats = 2 * bht * 4 + b * t
+        bounds = {name: (n_bytes, flops, max(n_bytes / HBM_BYTES_PER_S, flops / peak) * 1e3)
+                  for name, n_bytes, flops in (
+                      ("dq", 5 * n * elt + stats, 3 * 2 * b * h * t * t * hd * frac),
+                      ("dkdv", 6 * n * elt + stats, 4 * 2 * b * h * t * t * hd * frac),
+                      ("both", 7 * n * elt + stats, 5 * 2 * b * h * t * t * hd * frac))}
+        rec = {"B": b, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
+               "masked_tail": tail, "masked_lead": lead, "row_without_keys": unseen,
+               "causal": causal, "max_abs_err": errs, "tol": tol,
+               "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library_fwd_ms": fwd_ms,
+               "bound_ms": {k_: v_[2] for k_, v_ in bounds.items()},
+               "bound_by": {k_: "bytes" if v_[0] / HBM_BYTES_PER_S >= v_[1] / peak
+                            else "operations" for k_, v_ in bounds.items()},
+               "bytes": {k_: v_[0] for k_, v_ in bounds.items()},
+               "flops": {k_: v_[1] for k_, v_ in bounds.items()}}
+        print("flash_attention_backward " + json.dumps(rec), flush=True)
+        if i == 0:
+            main = rec
+    return main
+
+
 def update_inputs(b, cache_dtype, q_dtype, seed):
     """K3's inputs as the pool gives them: q / k_new / v_new strided views of
     one fused projection, positions spread over the cache with rows at 0,
@@ -389,17 +493,22 @@ class Launches:
         self.da.decode_attention_layer.launches = 0
         self.da.decode_attention_update_layer.launches = 0
         self.fa.flash_attention.launches = 0
+        self.fa.flash_attention_dq.launches = 0
+        self.fa.flash_attention_dkdv.launches = 0
         return self
 
     def __exit__(self, *exc):
         self.k1 = self.da.decode_attention_layer.launches
         self.k3 = self.da.decode_attention_update_layer.launches
         self.k4 = self.fa.flash_attention.launches
+        self.k5 = self.fa.flash_attention_dq.launches
+        self.k6 = self.fa.flash_attention_dkdv.launches
         return False
 
     def counts(self):
         return {"decode_attention_layer": self.k1, "decode_attention_update_layer": self.k3,
-                "flash_attention": self.k4}
+                "flash_attention": self.k4, "flash_attention_dq": self.k5,
+                "flash_attention_dkdv": self.k6}
 
 
 def expect(name, got, want):
@@ -445,7 +554,7 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
         if m["completed"] != len(srcs):
             raise AssertionError(f"serving: {m['completed']} of {len(srcs)} streams completed")
         expect("serving K3", n.k3, layers * m["decode_steps"])
-        expect_none("serving", n, ("k1", "k4"))
+        expect_none("serving", n, ("k1", "k4", "k5", "k6"))
         lat_ms = np.asarray([stats["latency_s"] for _, stats in results]) * 1e3
         print("serving " + json.dumps({
             "run": run, "warm_up": run == 0, "streams": len(srcs), "slots": server.slots,
@@ -457,6 +566,247 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
             "k1_launches": n.k1, "k3_launches": n.k3, "k4_launches": n.k4,
             "gpu": gpu}), flush=True)
     return n.counts()
+
+
+def _stage_trees(paths):
+    from genvc_tpu_torch import checkpoint as ckpt
+
+    return {"contentvec": ckpt.load_contentvec(paths["contentvec"]),
+            "acoustic_dvae": ckpt.load_dvae(paths["acoustic_dvae"]),
+            "content_dvae": ckpt.load_dvae(paths["content_dvae"])}
+
+
+def check_small_train_against_cpu(da, fa, tmp):
+    """Two GPT training steps of a small f32 configuration (the synthetic
+    stage checkpoints: GPT 2 x 64, hd = 16; ContentVec 1 layer; dVAEs hidden
+    16) on the card (K4 / K5 / K6) and on the CPU (their plain versions) from
+    the same files and batch, ``adamw_grouped`` (lr 1e-3 halved at step 1,
+    weight decay 0.1, Adam eps 1e-3). Codes identical; losses, top-10 and
+    gradient norms within 1e-4 relative (f32 on both sides, TF32 off, sums in
+    other orders); parameters within 1e-5 (updates are ~lr = 1e-3; the large
+    eps keeps noise-level gradients from being normalized up to ~lr)."""
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch import config, resolve_device
+    from genvc_tpu_torch.models import gpt as gpt_model
+    from genvc_tpu_torch.testing_synthetic import write_stage_ckpts
+    from genvc_tpu_torch.train import gpt_stage, optim
+
+    paths = write_stage_ckpts(os.path.join(tmp, "small"))
+    cfg = config.GenVCConfig()
+    for c, ch, nt in ((cfg.acoustic_dvae_config, 80, 64), (cfg.content_dvae_config, 256, 36)):
+        c.num_channels, c.num_tokens, c.hidden_dim, c.codebook_dim = ch, nt, 16, 24
+        c.num_resnet_blocks = 3
+    gcfg = gpt_model.GPTConfig(layers=2, model_dim=64, heads=4)
+    rng = np.random.default_rng(0)
+    wav = (rng.standard_normal((2, 1, 6 * 1920)) * 0.1).astype(np.float32)
+    wav[1, :, 4 * 1920:] = 0
+    batch = {"wav": wav, "wav_lengths": np.asarray([6 * 1920, 4 * 1920]),
+             "conditioning": (rng.standard_normal((2, 1, 1, 48000)) * 0.1).astype(np.float32),
+             "cond_lens": np.asarray([48000, 30000]), "text_lengths": np.asarray([6, 4])}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        dev = resolve_device(dev)
+        frozen = gpt_stage.make_frozen(cfg, _stage_trees(paths), np.ones(80, np.float32), dev)
+        with torch.device("meta"):
+            model = gpt_model.GPT(gcfg)
+        ckpt.assign(model, ckpt.load_gpt(paths["gpt"], gcfg.layers), dev)
+        flat = optim.FlatParams(model)
+        tx = optim.adamw_grouped(optim.multistep_schedule(1e-3, [1], 0.5), eps=1e-3,
+                                 weight_decay=0.1, params=flat).init(flat.flat)
+        state = gpt_stage.GPTTrainState(model, flat, tx)
+        step, _ = gpt_stage.make_train_step(attn_impl="flash", grad_norms=True)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        feats = gpt_stage.prepare_features(frozen, tb)
+        metrics = []
+        with Launches(da, fa) as n:
+            for _ in range(2):
+                state, m = step(state, tb, frozen)
+                metrics.append({k: float(v) for k, v in m.items()})
+        runs[dev.type] = (feats, metrics, ckpt.export_tree(model), n)
+    (fc, mc, pc, _), (fg, mg, pg, ng) = runs["cpu"], runs["cuda"]
+    if (ng.k4, ng.k5, ng.k6) != (4, 4, 4):
+        raise AssertionError(f"small train step: K4/K5/K6 launched {ng.k4}/{ng.k5}/{ng.k6} "
+                             "times, expected 4 each (2 layers x 2 steps)")
+    for k in ("audio_codes", "text_inputs"):
+        if not torch.equal(fc[k], fg[k].cpu()):
+            raise AssertionError(f"small train step: {k} differ between card and CPU")
+    worst = 0.0
+    for a, b in zip(mc, mg):
+        for k in a:
+            rel = abs(a[k] - b[k]) / max(abs(a[k]), 1e-6)
+            worst = max(worst, rel)
+            if rel > 1e-4 and abs(a[k] - b[k]) > 1e-6:
+                raise AssertionError(f"small train step: {k} {b[k]} on the card vs {a[k]}")
+
+    def leaves(t, prefix=""):
+        for k_, v_ in t.items():
+            if isinstance(v_, dict):
+                yield from leaves(v_, prefix + k_ + ".")
+            else:
+                yield prefix + k_, v_
+    pcpu = dict(leaves(pc))
+    perr = max(float(np.abs(pcpu[k_] - v_).max()) for k_, v_ in leaves(pg))
+    if perr > 1e-5:
+        raise AssertionError(f"small train step: parameters differ by {perr} after 2 steps")
+    print("small f32 config training, card vs CPU: 2 steps, losses "
+          f"{[m['loss'] for m in mg]} vs {[m['loss'] for m in mc]}, grad_norm/total "
+          f"{[m['grad_norm/total'] for m in mg]}, max rel metric err {worst:.2e} (tol 1e-4), "
+          f"max |param err| {perr:.2e} (tol 1e-5), codes identical, K4/K5/K6 launches "
+          f"{ng.k4}/{ng.k5}/{ng.k6}", flush=True)
+
+
+def write_training_assets(tmp):
+    """Frozen stage checkpoints at flagship width in the reference formats
+    (seeded random weights: ContentVec 12 layers; acoustic dVAE 80 ch / 1024
+    tokens and content dVAE 256 ch / 256 tokens, codebook 512, hidden 512)
+    and a metafile of 48 wavs, each a sample tiled to >= 8.5 s at 24 kHz
+    (rolled so no two are equal). Returns (paths, metafile)."""
+    import numpy as np
+
+    from genvc_tpu_torch import testing_synthetic as ts
+    from genvc_tpu_torch.dsp.audio_io import load_audio, write_wav
+
+    torch.manual_seed(0)
+    paths = {"contentvec": os.path.join(tmp, "contentvec.pt"),
+             "acoustic_dvae": os.path.join(tmp, "acoustic_dvae.pth"),
+             "content_dvae": os.path.join(tmp, "content_dvae.pth")}
+    torch.save({"model": ts.contentvec_sd(prefix="", n_layers=12)}, paths["contentvec"])
+    torch.save(ts.dvae_sd("", 80, 1024, codebook_dim=512, hidden=512), paths["acoustic_dvae"])
+    torch.save(ts.dvae_sd("", 256, 256, codebook_dim=512, hidden=512), paths["content_dvae"])
+    srcs = [load_audio(os.path.join(HERE, "samples", f), 24000)[0]
+            for f in ("EF4_ENG_0112_1.wav", "EM1_ENG_0037_1.wav")]
+    meta = os.path.join(tmp, "train.txt")
+    with open(meta, "w") as f:
+        for i in range(48):
+            src = srcs[i % 2]
+            wav = np.roll(np.tile(src, -(-int(8.5 * 24000) // src.size)), 4801 * i)
+            path = os.path.join(tmp, f"w{i}.wav")
+            write_wav(path, wav, 24000)
+            f.write(f"{path}|spk{i % 2}\n")
+    return paths, meta
+
+
+def check_training(da, fa, tmp, gpu):
+    """Phase 4: GPT training at flagship width through the runner, then steps
+    on one fixed batch. Returns the runner run's launch counts."""
+    import random
+
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch.train import gpt_stage, runner
+    from genvc_tpu_torch.train_genVC import recipe_config
+
+    t0 = time.perf_counter()
+    paths, meta = write_training_assets(tmp)
+    cfg = recipe_config(meta, meta, os.path.join(HERE, "pre_trained", "mel_stats.npy"),
+                        paths["acoustic_dvae"], paths["content_dvae"], paths["contentvec"],
+                        output_path=os.path.join(tmp, "exp"), batch_size=8, num_workers=4)
+    ma = cfg.model_args
+    ma.min_text_length = ma.max_text_length = 50
+    cfg.print_step = 1
+    layers, steps, b, text_len = ma.gpt_layers, 6, cfg.batch_size, 50
+    print(f"training assets written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the entry point: 1 warm-up + 5 timed steps, a checkpoint at the end
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(da, fa) as n:
+        t0 = time.perf_counter()
+        state = runner.run_gpt_training(cfg, max_steps=steps, bf16=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_b8 = torch.cuda.max_memory_allocated()
+    for k in ("k4", "k5", "k6"):
+        expect(f"training {k.upper()}", getattr(n, k), layers * steps)
+    expect_none("training", n, ("k1", "k3"))
+    counts = n.counts()
+    with open(os.path.join(cfg.output_path, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in log]
+    step_ms = [1e3 / r["steps_per_sec"] for r in log]
+    if len(log) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"training: {len(log)} logged steps, losses {losses}")
+    del state
+
+    # resume from the step-6 checkpoint for one more step
+    with Launches(da, fa) as n:
+        state = runner.run_gpt_training(cfg, max_steps=steps + 1, bf16=True, device="cuda")
+    if state.step != steps + 1 or state.opt.count != steps + 1:
+        raise AssertionError(f"resume: step {state.step}, optimizer count {state.opt.count}")
+    expect("resumed K5", n.k5, layers)
+
+    # one fixed batch: the step timed with a device sync, flash vs xla in turns
+    frozen = gpt_stage.make_frozen(cfg, _stage_trees(paths),
+                                   ckpt.load_mel_norms(ma.mel_norm_file), torch.device("cuda"))
+    train_ds, _ = runner.datasets(cfg)
+    batch = runner.to_device(train_ds.collate(list(range(b)), random.Random(0)), "cuda")
+    feats = gpt_stage.prepare_features(frozen, batch)
+    t_len = 32 + feats["text_inputs"].shape[1] + 2 + feats["audio_codes"].shape[1] + 2
+    step_fns = {impl: gpt_stage.make_train_step(compute_dtype=torch.bfloat16,
+                                                attn_impl=impl)[0] for impl in ("flash", "xla")}
+    times, fixed_losses = {"flash": [], "xla": []}, []
+
+    def run(impl, k, record=True):
+        nonlocal state
+        for _ in range(k):
+            with Launches(da, fa) as n:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fns[impl](state, batch, frozen)
+                loss = float(m["loss"])
+                ms = (time.perf_counter() - t0) * 1e3
+            want = layers if impl == "flash" else 0
+            if (n.k4, n.k5, n.k6) != (want, want, want) or n.k1 or n.k3:
+                raise AssertionError(f"fixed-batch {impl} step launches {n.counts()}")
+            fixed_losses.append(loss)
+            if record:
+                times[impl].append(ms)
+
+    run("flash", 1, record=False)
+    run("xla", 1, record=False)
+    for impl in ("flash", "xla", "xla", "flash"):
+        run(impl, 3)
+    if not (all(np.isfinite(fixed_losses)) and fixed_losses[-1] < fixed_losses[0]):
+        raise AssertionError(f"fixed batch: losses did not fall: {fixed_losses}")
+
+    # the recipe's B = 24 with 100-token texts: one step, peak memory
+    ma.min_text_length = ma.max_text_length = 100
+    train_ds, _ = runner.datasets(cfg)
+    batch = runner.to_device(train_ds.collate(list(range(24)), random.Random(1)), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step_fns["flash"](state, batch, frozen)
+    loss24 = float(m["loss"])
+    ms24 = (time.perf_counter() - t0) * 1e3
+    peak_b24 = torch.cuda.max_memory_allocated()
+    if not np.isfinite(loss24):
+        raise AssertionError(f"B=24 step: loss {loss24}")
+
+    # bench_train.py's analytic count: 6 * sequence tokens * core parameters
+    def flops(bsz, tl):
+        return 6 * bsz * (32 + tl + 2 + tl * 1920 // 1024 + 6) * 12 * layers * 1024 ** 2
+
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rec = {"batch": b, "text_len": text_len, "T": t_len, "layers": layers,
+           "dtype": "bf16 on f32 masters", "attn_impl": "flash",
+           "runner_steps": steps, "runner_wall_s": wall,
+           "runner_step_ms": step_ms, "runner_step_ms_median_timed": statistics.median(
+               step_ms[1:]), "runner_losses": losses,
+           "fixed_batch_step_ms": times["flash"], "step_ms_median": med["flash"],
+           "step_ms_min": min(times["flash"]), "step_ms_max": max(times["flash"]),
+           "tokens_per_s": b * text_len * 2.875 / (med["flash"] / 1e3),
+           "mfu": flops(b, text_len) / (med["flash"] / 1e3) / BF16_FLOPS,
+           "xla_step_ms": times["xla"], "xla_step_ms_median": med["xla"],
+           "xla_over_flash": med["xla"] / med["flash"], "fixed_batch_losses": fixed_losses,
+           "max_memory_allocated_b8": peak_b8, "resumed_to_step": steps + 1,
+           "b24_text_len": 100, "b24_step_ms": ms24, "b24_loss": loss24,
+           "b24_mfu": flops(24, 100) / (ms24 / 1e3) / BF16_FLOPS,
+           "max_memory_allocated_b24": peak_b24, "launches": counts, "gpu": gpu}
+    print("training " + json.dumps(rec), flush=True)
+    return counts
 
 
 def main() -> int:
@@ -479,9 +829,9 @@ def main() -> int:
 
     # ---- phase 1: build and check every kernel
     t0 = time.perf_counter()
-    kernels = {"decode_attention": da, "flash_attention": fa}
-    logs = _build.build_all(list(kernels))
-    print(f"built {list(kernels)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = ["decode_attention", "flash_attention", "flash_attention_bwd"]
+    logs = _build.build_all(kernels)
+    print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -489,6 +839,7 @@ def main() -> int:
     k1 = check_decode_attention(da)
     k3 = check_decode_attention_update(da)
     k4 = check_flash_attention(fa)
+    k56 = check_flash_backward(fa)
 
     # ---- phase 2: a small f32 configuration, card vs CPU
     src = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 16000)
@@ -498,6 +849,8 @@ def main() -> int:
     if any(x is None for x in (src, ref, src2, ref2)):
         raise RuntimeError("could not load the sample wavs")
     check_small_against_cpu(pipeline, StreamServer, fa, src, ref, src2)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_small_train_against_cpu(da, fa, tmp)
 
     # ---- phase 3: every path at flagship width, bf16
     cfg = pipeline.flagship_config()
@@ -519,7 +872,7 @@ def main() -> int:
         steps = pipe.last_timing["decode_steps"]
         check_audio("streaming", wav, pipe.sample_rate)
         expect("streaming K1", n.k1, layers * steps)
-        expect_none("streaming", n, ("k3", "k4"))
+        expect_none("streaming", n, ("k3", "k4", "k5", "k6"))
         lat.append(latency * 1e3)
         rtf.append(r)
         print(f"streaming run {run}: {wav.size} samples, first-chunk latency "
@@ -544,7 +897,7 @@ def main() -> int:
         check_audio("offline", wav, pipe.sample_rate)
         expect("offline K1", n.k1, layers * timing["decode_steps"])
         expect("offline K4", n.k4, layers * timing["latent_passes"])
-        expect_none("offline", n, ("k3",))
+        expect_none("offline", n, ("k3", "k5", "k6"))
         rtf.append(elapsed / seconds)
         print(f"offline run {run}: {seconds:.2f} s source, {wav.size} samples, "
               f"{elapsed * 1e3:.1f} ms, RTF {rtf[-1]:.4f}, decode steps "
@@ -575,7 +928,8 @@ def main() -> int:
             expect(f"{name} K1", n.k1, layers * timing["decode_steps"])
             if name == "batch":
                 expect(f"{name} K4", n.k4, layers * timing["latent_passes"])
-            expect_none(name, n, ("k3",) if name == "batch" else ("k3", "k4"))
+            expect_none(name, n, ("k3", "k5", "k6") if name == "batch"
+                        else ("k3", "k4", "k5", "k6"))
             rtf.append(elapsed / total_s)
             print(f"{name} run {run}: 4 utterances, {total_s:.2f} s of source, "
                   f"{elapsed * 1e3:.1f} ms, aggregate RTF {rtf[-1]:.4f}, decode steps "
@@ -588,6 +942,12 @@ def main() -> int:
     # serving: 16 streams (the batch's 4 sources x 4) into 8 slots at once
     by_path["serving"] = check_serving(pipe, StreamServer, srcs * 4, [ref, ref2] * 8,
                                        da, fa, gpu)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: GPT training at flagship width
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["training"] = check_training(da, fa, tmp, gpu)
     print(f"chip_smoke: {time.perf_counter() - begin:.1f} s", flush=True)
 
     def launches(kernel):
@@ -617,7 +977,20 @@ def main() -> int:
         "launches_by_path": launches("flash_attention"),
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}]}), flush=True)
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}] + [{
+        # K5 / K6: plain_ms and library_ms (SDPA's backward) are of the whole
+        # backward, dq, dk and dv together; ms and bound_ms of the kernel alone
+        "name": name, "route": "cuda",
+        "source": "genvc_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": replaces,
+        "launches": sum(launches(name).values()), "launches_by_path": launches(name),
+        "max_abs_err": max(k56["max_abs_err"][g] for g in grads),
+        "ms": k56[f"{part}_ms"], "plain_ms": k56["plain_ms"],
+        "bound_ms": k56["bound_ms"][part], "bound_by": k56["bound_by"][part],
+        "library_ms": k56["library_ms"]} for name, replaces, part, grads in (
+            ("flash_attention_dq", "genvc_tpu/ops/flash_attention.py:187", "dq", ("dq",)),
+            ("flash_attention_dkdv", "genvc_tpu/ops/flash_attention.py:197", "dkdv",
+             ("dk", "dv")))]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,12 +14,15 @@ without further transposition.
 
 The second half, :func:`load_jax_tree`, turns such a tree (numpy arrays or
 tensors; layer stacks either stacked on a leading axis or as lists) into the
-port's ``nn.Module``s on a device.
+port's ``nn.Module``s on a device; :func:`export_tree` is its inverse. The
+training stage's loaders (:func:`load_mel_norms`, :func:`load_contentvec`,
+:func:`load_dvae`, :func:`load_gpt`) read the reference's per-stage files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -333,8 +336,44 @@ def convert_bundle(path: str):
     return out
 
 
+def load_mel_norms(path) -> np.ndarray:
+    """Per-bin mel norms from a ``.npy`` or torch file; ones (80,) when the
+    path is empty or missing."""
+    if path and os.path.exists(str(path)):
+        if str(path).endswith(".npy"):
+            return np.load(path).astype(np.float32)
+        return _np(torch.load(path, map_location="cpu", weights_only=True))
+    return np.ones((80,), np.float32)
+
+
+def load_contentvec(path: str) -> dict:
+    """A fairseq ContentVec / HuBERT checkpoint -> parameter tree."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt)
+    sd = {k: v for k, v in sd.items() if hasattr(v, "numpy")}
+    n = max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.layers.")) + 1
+    return convert_contentvec(sd, n_layers=n)
+
+
+def load_dvae(path: str, name: str = "dvae") -> dict:
+    """A dVAE stage checkpoint (a bare state dict, ``{'model': sd}``, or a
+    trainer bundle whose keys carry ``name + '.'``) -> parameter tree."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model" in ckpt and "config" in ckpt:
+        sd = strip_prefix(ckpt["model"], name + ".")
+    else:
+        sd = ckpt.get("model", ckpt)
+    return convert_dvae(sd)
+
+
+def load_gpt(path: str, n_layers: int) -> dict:
+    """The GPT of a reference ``.pth`` bundle -> parameter tree."""
+    sd, _ = load_torch_bundle(path)
+    return convert_gpt(strip_prefix(sd, "gpt."), n_layers)
+
+
 # ---------------------------------------------------------------------------
-# Parameter tree -> modules
+# Parameter tree <-> modules
 
 
 @dataclasses.dataclass
@@ -405,6 +444,28 @@ def assign(module: nn.Module, tree: dict, device, path: str = "") -> None:
                                  f"{tuple(child.shape)}")
             setattr(module, key, nn.Parameter(
                 t.to(device=device, dtype=torch.float32), requires_grad=False))
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def export_tree(module: nn.Module) -> dict:
+    """The inverse of :func:`assign`: ``module``'s parameters as a tree of f32
+    numpy arrays in the JAX package's layout. The layer lists the JAX tree
+    stacks (the GPT's ``blocks``, the Perceiver's and ContentVec's
+    ``layers``) are stacked on a leading axis, other lists stay lists."""
+    out = {n: np.array(p.detach().float().cpu().numpy())  # a copy, never a view
+           for n, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            items = [export_tree(m) for m in child]
+            out[name] = _stack(items) if name in ("blocks", "layers") else items
+        else:
+            out[name] = export_tree(child)
+    return out
 
 
 def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",

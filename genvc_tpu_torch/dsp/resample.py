@@ -16,12 +16,14 @@ import torch.nn.functional as F
 from genvc_tpu_torch.dsp import filters
 
 
-def resample(x, orig_freq: int, new_freq: int, window: str = "hann"):
-    """Resample (..., T) -> (..., ceil(T * new/orig)) matching torchaudio
-    (lowpass width 6, rolloff 0.99; ``window`` "hann" or "kaiser")."""
+def resample(x, orig_freq: int, new_freq: int, *, lowpass_filter_width: int = 6,
+             rolloff: float = 0.99, beta: float | None = None, window: str = "hann"):
+    """Resample (..., T) -> (..., ceil(T * new/orig)) matching torchaudio;
+    ``window`` "hann" or "kaiser" (with ``beta``)."""
     if orig_freq == new_freq:
         return x
-    kernels, width, orig_r, _ = filters.resample_kernel(orig_freq, new_freq, window=window)
+    kernels, width, orig_r, _ = filters.resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff, beta, window)
     t = x.shape[-1]
     batch_shape = x.shape[:-1]
     xb = F.pad(x.reshape(-1, 1, t).float(), (width, width + orig_r))
@@ -32,11 +34,14 @@ def resample(x, orig_freq: int, new_freq: int, window: str = "hann"):
     return y[:, :target_len].reshape(*batch_shape, target_len)
 
 
-def resample_np(x: np.ndarray, orig_freq: int, new_freq: int, window: str = "hann"):
+def resample_np(x: np.ndarray, orig_freq: int, new_freq: int, *,
+                lowpass_filter_width: int = 6, rolloff: float = 0.99,
+                beta: float | None = None, window: str = "hann"):
     """Host (numpy) version with identical numerics."""
     if orig_freq == new_freq:
         return x
-    kernels, width, orig_r, _ = filters.resample_kernel(orig_freq, new_freq, window=window)
+    kernels, width, orig_r, _ = filters.resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff, beta, window)
     t = x.shape[-1]
     batch_shape = x.shape[:-1]
     xb = np.pad(x.reshape(-1, t).astype(np.float32), ((0, 0), (width, width + orig_r)))

@@ -1,11 +1,12 @@
-"""Causal, key-masked attention forward (O and LSE) over whole sequences.
+"""Causal, key-masked attention over whole sequences: forward (O and LSE)
+and backward (dq, dk, dv), differentiable through :class:`FlashAttention`.
 
-Replaces the Pallas kernel of ``genvc_tpu/ops/flash_attention.py``:
-``_pallas_attention`` (body ``_attn_fwd_kernel``). The kernel is
-``csrc/flash_attention.cu``, hand-written for ``sm_90a``, built with ``nvcc``
-into a C-ABI library at first use and called through ``ctypes``. Its backward
-(the Pallas dq and dk/dv kernels) is not ported yet: this module runs in
-inference only.
+Replaces the Pallas kernels of ``genvc_tpu/ops/flash_attention.py``:
+``_pallas_attention`` (body ``_attn_fwd_kernel``, K4) and ``_pallas_backward``
+(bodies ``_attn_dq_kernel``, K5, and ``_attn_dkdv_kernel``, K6). The kernels
+are ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(dq; dk and dv), hand-written for ``sm_90a``, each built with ``nvcc`` into a
+C-ABI library at first use and called through ``ctypes``.
 
 Shapes (JAX's layout):
   q, k, v    (B, H, T, hd)  bf16 or f32, one dtype; hd a multiple of 8 <= 256
@@ -13,21 +14,27 @@ Shapes (JAX's layout):
   -> O       (B, H, T, hd)  q's dtype
   -> LSE     (B, H, T)      f32
 
-Numerics (those of the Pallas body, not of the dense ``ops.nn.attention``):
-q, k, v widened to f32; s = (q.k^T) * scale; s SET to -1e9 where the key is
-invalid or, under ``causal``, col > row; m = rowmax, p = exp(s - m), l = sum p
-over the Pallas kernel's key width (T padded to a multiple of 128 with invalid
-keys); O = (p.v) / l in f32 with no rounding of p, cast to q's dtype;
-LSE = m + log(l).
+Forward numerics (those of the Pallas body, not of the dense
+``ops.nn.attention``): q, k, v widened to f32; s = (q.k^T) * scale; s SET to
+-1e9 where the key is invalid or, under ``causal``, col > row; m = rowmax,
+p = exp(s - m), l = sum p over the Pallas kernel's key width (T padded to a
+multiple of 128 with invalid keys); O = (p.v) / l in f32 with no rounding of
+p, cast to q's dtype; LSE = m + log(l).
 
-Bound on the card: bytes (q, k, v read and O written once: 2.5 MB at the
-latent pass's B = 1, H = 4, T = 308, hd = 256, bf16); see the source for the
-tiling.
+Backward numerics (the Pallas dq and dk/dv bodies): the same masked s,
+p = exp(s - LSE) from the saved LSE, dp = dO.v^T, ds = p * (dp - D) with
+D = rowsum(dO * O) computed here in plain torch from the saved O, as the JAX
+package computes it in XLA; dq = (ds.k) * scale, dk = (ds^T.q) * scale,
+dv = p^T.dO, all in f32, cast to q's dtype.
 
-``flash_attention_fwd`` runs the kernel for CUDA tensors and the plain PyTorch
-version (:func:`flash_attention_plain`) only for CPU tensors; anything the
-kernel does not take raises. Each kernel launch adds one to
-``flash_attention.launches``.
+Bound on the card: bytes, for the forward at the latent pass's shape and for
+the backward at the training step's; see the sources for the tiling.
+
+The wrappers run the kernels for CUDA tensors and the plain PyTorch versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`) only for
+CPU tensors; anything a kernel does not take raises. Each launch adds one to
+its wrapper's count: ``flash_attention.launches`` (K4),
+``flash_attention_dq.launches`` (K5), ``flash_attention_dkdv.launches`` (K6).
 """
 
 from __future__ import annotations
@@ -135,10 +142,153 @@ def flash_attention_fwd(q, k, v, kv_valid, scale=None, causal=True):
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, kv_valid, out, lse, g, scale=None,
+                              causal=True):
+    """Plain PyTorch version of the backward, a transcription of the Pallas
+    ``_attn_dq_kernel`` and ``_attn_dkdv_kernel``. ``out`` and ``lse`` are the
+    forward's; ``g`` is dO. Keys are not padded: a padded key is a zero row
+    (no term in dq, its dk / dv dropped) and a padded query row has dO = 0,
+    so the padding only shows through the LSE. Returns (dq, dk, dv) in q's
+    dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    t = q.shape[2]
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dd = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ok = kv_valid[:, None, None, :]
+    if causal:
+        col = torch.arange(t, device=q.device)
+        ok = ok & (col[None, :] <= col[:, None])
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _row_strides(x):
+    """``x`` itself when its head dim is contiguous and its rows 16-byte
+    aligned, else a contiguous copy (a gradient may arrive expanded)."""
+    try:
+        _strides(x)
+        if x.data_ptr() % 16 == 0:
+            return x
+    except ValueError:
+        pass
+    return x.contiguous()
+
+
+def _bwd_args(q, k, v, kv_valid, out, lse, g):
+    """Checks and the kernels' shared arguments: (lse, D, dO, valid, strides
+    of q/k/v, strides of dO)."""
+    if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype \
+            or g.dtype != q.dtype:
+        raise ValueError(f"out {out.dtype} {tuple(out.shape)}, dO {g.dtype} "
+                         f"{tuple(g.shape)}: must match q {q.dtype} {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:3]:
+        raise ValueError(f"lse {lse.dtype} {tuple(lse.shape)}: must be f32 "
+                         f"{tuple(q.shape[:3])}")
+    sb, sh, st = _strides(q)
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError("q, k and v must share one set of strides")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    b, h = q.shape[:2]
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h}: the kernels' grid takes at most 65535")
+    g = _row_strides(g)
+    dd = (g.float() * out.float()).sum(dim=-1).contiguous()
+    return (lse.contiguous(), dd, g, kv_valid.contiguous(), (sb, sh, st),
+            _strides(g))
+
+
+def _grad_buffer(q):
+    """(B, H, T, hd) view of a (B, T, H, hd) buffer: the head merge of the
+    qkv projection's gradient is then free."""
+    b, h, t, hd = q.shape
+    return torch.empty(b, t, h, hd, dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def flash_attention_dq(q, k, v, kv_valid, lse, dd, g, scale, causal, qkv_st, g_st):
+    """K5: dq. Arguments as :func:`_bwd_args` prepares them."""
+    b, h, t, hd = q.shape
+    dq = _grad_buffer(q)
+    err = _lib_bwd().genvc_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b, h, t, hd, float(scale),
+        int(causal), int(q.dtype == torch.bfloat16), *qkv_st, *g_st,
+        *dq.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention dq kernel launch failed: CUDA error {err}")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def flash_attention_dkdv(q, k, v, kv_valid, lse, dd, g, scale, causal, qkv_st, g_st):
+    """K6: dk and dv. Arguments as :func:`_bwd_args` prepares them."""
+    b, h, t, hd = q.shape
+    dk, dv = _grad_buffer(q), _grad_buffer(q)
+    err = _lib_bwd().genvc_flash_attention_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, hd,
+        float(scale), int(causal), int(q.dtype == torch.bfloat16), *qkv_st, *g_st,
+        *dk.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention dk/dv kernel launch failed: CUDA error {err}")
+    flash_attention_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_dq.launches = 0
+flash_attention_dkdv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, kv_valid, out, lse, g, scale=None, causal=True):
+    """Attention backward from the forward's O and LSE and dO (``g``);
+    returns (dq, dk, dv) in q's dtype. CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch K5 and K6 (no
+    fallback); on the card dq, dk and dv come back as (B, H, T, hd) views of
+    (B, T, H, hd) buffers."""
+    _check(q, k, v, kv_valid)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, kv_valid, out, lse, g, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    lse, dd, g, valid, qkv_st, g_st = _bwd_args(q, k, v, kv_valid, out, lse, g)
+    args = (q, k, v, valid, lse, dd, g, scale, causal, qkv_st, g_st)
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkdv(*args)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The JAX package's ``flash_attention`` custom VJP: forward K4 (O and LSE
+    saved), backward K5 + K6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, scale, causal):
+        out, lse = flash_attention_fwd(q, k, v, kv_valid, scale, causal)
+        ctx.save_for_backward(q, k, v, kv_valid, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_valid, out, lse, g,
+                                         ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, kv_valid, scale=None, causal=True):
-    """(B, H, T, hd) causal, key-masked attention; returns O only (the JAX
-    package's ``flash_attention``, forward)."""
-    return flash_attention_fwd(q, k, v, kv_valid, scale, causal)[0]
+    """(B, H, T, hd) causal, key-masked attention; returns O, differentiable
+    in q, k and v (the JAX package's ``flash_attention``)."""
+    return FlashAttention.apply(q, k, v, kv_valid, scale, causal)
 
 
 flash_attention.launches = 0
@@ -154,4 +304,19 @@ def _lib():
                        + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd():
+    from genvc_tpu_torch import _build
+
+    lib = _build.load("flash_attention_bwd")
+    for name, n_out in (("genvc_flash_attention_bwd_dq", 1),
+                        ("genvc_flash_attention_bwd_dkdv", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 4
+                           + [ctypes.c_float] + [ctypes.c_int] * 2
+                           + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib

@@ -1,7 +1,8 @@
-"""Flash-attention forward parity: the port's plain version (what its wrapper
-runs on CPU tensors) against the JAX Pallas kernel ``_pallas_attention`` in
-interpret mode, on O and LSE; and the CUDA kernel against the plain version
-on a card.
+"""Flash-attention parity: the port's plain versions (what its wrappers run
+on CPU tensors) against the JAX Pallas kernels in interpret mode, forward
+(``_pallas_attention``, O and LSE) and backward (``_pallas_backward``, dq, dk
+and dv); ``FlashAttention``'s gradients against autograd; and the CUDA
+kernels against the plain versions on a card.
 
 Tolerances: f32 inputs at atol 2e-5 (both sides compute in f32; the sums run
 in other orders). bf16 inputs: O at atol 1e-2, since O is rounded to bf16
@@ -108,3 +109,102 @@ def test_torch_cuda_flash_kernel_matches_plain(dt):
                                atol=DT[dt][2], rtol=0)
     np.testing.assert_allclose(got_lse.cpu().numpy(), want_lse.cpu().numpy(),
                                atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Backward (K5: dq, K6: dk / dv). The plain version against the Pallas
+# backward in interpret mode, from the Pallas forward's LSE, in f32 at atol
+# 2e-5 (both sides compute in f32; the sums run in other orders).
+
+
+def _bwd_inputs(t, causal, seed, b=2, h=2, hd=16):
+    """f32 inputs on both sides; batch row 0 has its first 5 keys and a tail
+    of 9 masked (under causal its first rows see no valid key), batch row 1
+    has every key masked (non-causal: rows with no valid key at all) or a
+    tail of 21 (causal)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((b, h, t, hd)).astype(np.float32) * 0.5
+                  for _ in range(4))
+    valid = np.ones((b, t), bool)
+    valid[0, :5] = False
+    valid[0, t - 9:] = False
+    if causal:
+        valid[1, t - 21:] = False
+    else:
+        valid[1] = False
+    return q, k, v, g, valid
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 136])
+def test_torch_flash_bwd_plain_matches_pallas_backward(t, causal):
+    from genvc_tpu.ops.flash_attention import _pallas_backward
+
+    q, k, v, g, valid = _bwd_inputs(t, causal, seed=t + causal)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jq, jk, jv, jg, jvalid = (jnp.asarray(x) for x in (q, k, v, g, valid))
+    out, lse = _pallas_attention(jq, jk, jv, jvalid, scale, causal, interpret=True)
+    want = _pallas_backward(jq, jk, jv, jvalid, out, lse, jg, scale, causal,
+                            interpret=True)
+    tq, tk, tv, tg, tvalid = (torch.from_numpy(x) for x in (q, k, v, g, valid))
+    got = tfa.flash_attention_bwd(tq, tk, tv, tvalid, torch.from_numpy(np.array(out)),
+                                  torch.from_numpy(np.array(lse)), tg, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == tq.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5, rtol=0,
+                                   err_msg=name)
+    # rows that see no valid key take p = exp(-1e9 - LSE) = 1 on every key
+    unseen = 1 if not causal else 0
+    np.testing.assert_allclose(np.asarray(lse)[unseen, :, :5], -1e9)
+    assert np.abs(got[0][unseen, :, :5].numpy()).max() > 0
+
+
+def test_torch_flash_attention_gradients_match_autograd_of_plain():
+    """``FlashAttention`` (forward K4, backward K5 + K6; their plain versions
+    here) against autograd through :func:`flash_attention_plain`, on rows
+    that all see a valid key, where the Pallas backward's formula is the
+    true gradient. f32, atol 1e-5."""
+    rng = np.random.default_rng(3)
+    b, h, t, hd = 2, 2, 40, 16
+    base = [torch.from_numpy(rng.standard_normal((b, h, t, hd)).astype(np.float32))
+            for _ in range(3)]
+    w = torch.from_numpy(rng.standard_normal((b, h, t, hd)).astype(np.float32))
+    valid = torch.ones(b, t, dtype=torch.bool)
+    valid[1, t - 11:] = False
+    for causal in (True, False):
+        grads = []
+        for fn in (lambda q, k, v: tfa.flash_attention(q, k, v, valid, 0.3, causal),
+                   lambda q, k, v: tfa.flash_attention_plain(q, k, v, valid, 0.3, causal)[0]):
+            qkv = [x.clone().requires_grad_(True) for x in base]
+            (fn(*qkv) * w).sum().backward()
+            grads.append([x.grad for x in qkv])
+        for a, want in zip(*grads):
+            torch.testing.assert_close(a, want, atol=1e-5, rtol=0)
+
+
+def test_torch_flash_bwd_rejects_what_the_kernels_do_not_take():
+    _, (tq, tk, tv, tvalid) = _inputs("f32", t=16, hd=16)
+    out, lse = tfa.flash_attention_fwd(tq, tk, tv, tvalid)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention_bwd(*(x.to("meta") for x in (tq, tk, tv, tvalid, out, lse, out)))
+    with pytest.raises(ValueError, match="dtypes"):
+        tfa.flash_attention_bwd(tq.half(), tk.half(), tv.half(), tvalid, out, lse, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_torch_cuda_flash_bwd_kernels_match_plain(dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, g, valid = (torch.from_numpy(x).cuda() for x in _bwd_inputs(184, True, 0,
+                                                                         b=2, h=4, hd=256))
+    q, k, v, g = (x.to(DT[dt][1]) for x in (q, k, v, g))
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    before = (tfa.flash_attention_dq.launches, tfa.flash_attention_dkdv.launches)
+    got = tfa.flash_attention_bwd(q, k, v, valid, out, lse, g)
+    want = tfa.flash_attention_bwd_plain(q, k, v, valid, out, lse, g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_dq.launches, tfa.flash_attention_dkdv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=DT[dt][2], rtol=DT[dt][2])

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``genvc_tpu_torch/`` (nor the card's
-smoke script) imports ``jax`` or anything of the JAX package ``genvc_tpu``."""
+smoke script) imports ``jax``, ``optax``, ``orbax`` or anything of the JAX
+package ``genvc_tpu``."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "genvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "genvc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "genvc_tpu")
 
 
 def _imported_modules(path):
@@ -33,6 +34,7 @@ def test_torch_port_imports_no_jax(path):
 def test_torch_import_check_sees_violations(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom genvc_tpu.ops import nn\n"
-                 "from genvc_tpu_torch import ops\n")
+                 "from genvc_tpu_torch import ops\nimport optax\n"
+                 "import orbax.checkpoint as ocp\n")
     assert sorted(m for m in _imported_modules(p) if _forbidden(m)) == \
-        ["genvc_tpu.ops", "genvc_tpu.ops.nn", "jax.numpy"]
+        ["genvc_tpu.ops", "genvc_tpu.ops.nn", "jax.numpy", "optax", "orbax.checkpoint"]
