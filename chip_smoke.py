@@ -5,12 +5,15 @@
 Phase 1 builds every hand-written kernel from ``genvc_tpu_torch/csrc`` (one
 ``nvcc`` per source, all in parallel), checks each against its plain PyTorch
 version at the shapes the paths give it, and times kernel, plain version and
-the library yardstick with CUDA events: K1 (cached decode attention; K2 is K1
-with L = 1) at the flagship decode shapes, K3 (the per-row cache write and
-attention of the serving pool: caches bit-equal to the plain version's, a row
-past the cache end untouched) at the pool's shapes, K4 (flash-attention
-forward, O and LSE) at the latent pass's shapes, K5 / K6 (flash-attention
-backward: dq; dk and dv) at the training step's shapes.
+the library yardstick with CUDA events: K1 (cached decode attention, split
+over the cache length; K2 is K1 with L = 1) at the flagship decode shape and
+at B in {1, 4, 8, 16} x T in {128, 384, 1024}, K3 (the per-row cache write
+and attention of the serving pool: caches bit-equal to the plain version's,
+a row past the cache end untouched) at the pool's shapes, K4 (flash-attention
+forward, O and LSE; bf16 on the tensor cores) at the latent pass's and the
+training step's shapes and at its tile edges, K5 / K6 (flash-attention
+backward: dq; dk and dv) at the training step's shapes. Kernel / library
+ratios are printed for K1, K2 and K4.
 
 Phase 2 runs a small f32 configuration on the card and on the CPU with the
 same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
@@ -66,17 +69,40 @@ F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 FLAGSHIP = dict(L=30, H=4, T=384, hd=256)
 TOL = 2e-2  # K1 vs plain: same casts; bf16 probabilities and bf16 output
             # round at 2^-8 relative, f32 sums differ in order
-# K4 vs plain: both compute in f32 from the same inputs; the sums run in
-# another order (f32, ~1e-6 relative). A bf16 O is then rounded to bf16 on
-# both sides, so one rounding may land a bf16 ulp apart (2^-8 relative).
+# K4 vs plain: the plain version computes in f32 from the same inputs with
+# an unrounded p; the bf16 kernel rounds p to bf16 before P.V on the tensor
+# cores (2^-9 of each weight, an error under O's own bf16 rounding), the f32
+# kernel does not; the sums run in another order (f32, ~1e-6 relative). A
+# bf16 O is then rounded to bf16 on both sides, so one rounding may land a
+# bf16 ulp apart (2^-8 relative). LSE comes from the f32 p on both sides.
 FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-4
-# (B, T, hd, dtype, masked key tail of the last row): the latent pass's
-# shapes (T = 308 for a full 6 s segment, 180 for the 1.68 s tail of the
-# flagship source), batched, in f32, and the small configuration's hd = 16
-FLASH_CASES = [(1, 308, 256, torch.bfloat16, 0), (1, 180, 256, torch.bfloat16, 0),
-               (1, 308, 256, torch.bfloat16, 57), (8, 308, 256, torch.bfloat16, 57),
-               (1, 308, 256, torch.float32, 0), (1, 180, 16, torch.float32, 23)]
+# (B, T, hd, dtype, masked key tail of the last row, masked leading keys of
+# row 0, row 0 all masked, causal): the latent pass's shapes (T = 308 for a
+# full 6 s segment, 180 for the 1.68 s tail of the flagship source),
+# batched, in f32, the small configuration's hd = 16; the training step's
+# shapes (T = 184 at 50-token texts, 328 at the recipe's 100); the tile
+# edges of the bf16 kernel (16 query rows, 64 keys a tile): T below one
+# tile, T not a multiple of it, hd 64 and 72 (padded to 80 in shared
+# memory), rows before the first valid key, and a non-causal row with no
+# valid key (both the uniform mean over the padded width)
+FLASH_CASES = [(1, 308, 256, torch.bfloat16, 0, 0, False, True),
+               (1, 180, 256, torch.bfloat16, 0, 0, False, True),
+               (1, 308, 256, torch.bfloat16, 57, 0, False, True),
+               (8, 308, 256, torch.bfloat16, 57, 0, False, True),
+               (1, 308, 256, torch.float32, 0, 0, False, True),
+               (1, 180, 16, torch.float32, 23, 0, False, True),
+               (8, 184, 256, torch.bfloat16, 0, 0, False, True),
+               (8, 328, 256, torch.bfloat16, 0, 0, False, True),
+               (1, 11, 256, torch.bfloat16, 0, 0, False, True),
+               (2, 77, 256, torch.bfloat16, 5, 0, False, True),
+               (2, 184, 64, torch.bfloat16, 9, 0, False, True),
+               (2, 184, 72, torch.bfloat16, 9, 0, False, True),
+               (2, 184, 256, torch.bfloat16, 0, 37, False, True),
+               (2, 136, 256, torch.bfloat16, 11, 0, True, False),
+               (2, 136, 64, torch.float32, 11, 0, True, False)]
+# K1 cases beyond the flagship shape (B, T): batch rows x cache lengths
+DECODE_SHAPES = [(b, t) for b in (1, 4, 8, 16) for t in (128, 384, 1024)]
 
 
 def gpu_line() -> str:
@@ -100,8 +126,36 @@ def time_ms(fn, iters=200, warmup=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def decode_inputs(b, cache_dtype, q_dtype, seed):
-    L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
+def device_ms(fn, iters=50, warmup=5):
+    """Device time of one call of ``fn``: the summed durations of the CUDA
+    kernels its calls launch, traced with ``torch.profiler`` over ``iters``
+    calls, and the kernels launched per call. ``time_ms`` over a loop of
+    calls is bounded below by the host's time per call (the wrapper's Python
+    and the launches), which for these small kernels exceeds the device's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # the tracer now and then returns no device events
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.time_range for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(tr.end - tr.start for tr in spans) / iters / 1e3, len(spans) / iters
+    print("device_ms: the trace held no device activity three times: not measured",
+          flush=True)
+    return None, None
+
+
+def ratio(a, b):
+    return a / b if a and b else None
+
+
+def decode_inputs(b, cache_dtype, q_dtype, seed, T=FLAGSHIP["T"]):
+    L, H, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["hd"]
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, H, hd, generator=g, device="cuda").to(q_dtype)
     ck = torch.randn(L, b, H, T, hd, generator=g, device="cuda").to(cache_dtype)
@@ -115,17 +169,24 @@ def decode_inputs(b, cache_dtype, q_dtype, seed):
 
 
 def check_decode_attention(da):
-    """K1 vs its plain version at the flagship decode shapes; returns the
-    timing record of the main-path configuration (bf16 cache, bf16 q, B=1)."""
+    """K1 vs its plain version: the flagship decode shape in every cache / q
+    type, and bf16 at B in {1, 4, 8, 16} x T in {128, 384, 1024} (row 0 of a
+    batch has a single valid key). Times kernel, plain version and SDPA;
+    returns the timing record of the main-path configuration (bf16 cache,
+    bf16 q, B=1, T=384)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     main = None
-    cases = [(1, torch.bfloat16, torch.bfloat16), (16, torch.bfloat16, torch.bfloat16),
-             (1, torch.float8_e4m3fn, torch.bfloat16), (16, torch.float8_e4m3fn, torch.bfloat16),
-             (1, torch.bfloat16, torch.float32), (1, torch.float8_e4m3fn, torch.float32)]
-    for i, (b, cdt, qdt) in enumerate(cases):
-        q, ck, cv, bias = decode_inputs(b, cdt, qdt, seed=i)
+    bf = torch.bfloat16
+    cases = ([(1, T, bf, bf)] + [(b, t, bf, bf) for b, t in DECODE_SHAPES if (b, t) != (1, T)]
+             + [(1, T, torch.float8_e4m3fn, bf), (16, T, torch.float8_e4m3fn, bf),
+                (4, 1024, torch.float8_e4m3fn, bf), (1, T, bf, torch.float32),
+                (8, 1024, bf, torch.float32), (1, T, torch.float8_e4m3fn, torch.float32),
+                (16, T, torch.float8_e4m3fn, torch.float32)])
+    for i, (b, t, cdt, qdt) in enumerate(cases):
+        q, ck, cv, bias = decode_inputs(b, cdt, qdt, seed=i, T=t)
         worst = 0.0
         for layer in (0, 13, L - 1):
             got = da.decode_attention_layer(q, ck, cv, bias, layer).float()
@@ -134,7 +195,7 @@ def check_decode_attention(da):
             err = (got - want).abs()
             worst = max(worst, float(err.max()))
             if not bool((err <= TOL + TOL * want.abs()).all()):
-                raise AssertionError(f"decode_attention B={b} cache={cdt} q={qdt} "
+                raise AssertionError(f"decode_attention B={b} T={t} cache={cdt} q={qdt} "
                                      f"layer={layer}: max |err| {float(err.max())}")
         # time over every layer in turn (the decode step's access pattern)
         lidx = iter(range(10 ** 9))
@@ -142,40 +203,54 @@ def check_decode_attention(da):
         plain_ms = time_ms(lambda: da.decode_attention_layer_plain(q, ck, cv, bias,
                                                                    next(lidx) % L), iters=50)
         lib_ms = None
-        if cdt == torch.bfloat16 and qdt == torch.bfloat16:
-            q4, m4 = q[:, :, None, :], bias[:, None, None, :].to(torch.bfloat16)
+        if cdt == bf and qdt == bf:
+            q4, m4 = q[:, :, None, :], bias[:, None, None, :].to(bf)
             def lib_call():
                 layer = next(lidx) % L
                 return sdpa(q4, ck[layer], cv[layer], attn_mask=m4)
             lib_ms = time_ms(lib_call)
-        n_bytes = (2 * b * H * T * hd * ck.element_size() + q.numel() * q.element_size()
+            lib_dev, _ = device_ms(lib_call)
+        dev, per_call = device_ms(lambda: da.decode_attention_layer(q, ck, cv, bias,
+                                                                    next(lidx) % L))
+        n_bytes = (2 * b * H * t * hd * ck.element_size() + q.numel() * q.element_size()
                    + bias.numel() * 4 + q.numel() * q.element_size())
-        flops = 4 * b * H * T * hd
+        flops = 4 * b * H * t * hd
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        rec = {"B": b, "cache": str(cdt).replace("torch.", ""),
-               "q": str(qdt).replace("torch.", ""), "max_abs_err": worst, "tol": TOL,
+        rec = {"B": b, "T": t, "cache": str(cdt).replace("torch.", ""),
+               "q": str(qdt).replace("torch.", ""), "keys_per_split": da.split_len(b * H, t, da.SPLIT_BLOCKS_PER_SM * n_sm),
+               "cuda_launches_per_call": per_call, "max_abs_err": worst, "tol": TOL,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ratio": ms / lib_ms if lib_ms else None, "device_ms": dev,
+               "library_device_ms": lib_dev if lib_ms else None,
+               "device_ratio": ratio(dev, lib_dev) if lib_ms else None,
                "bound_ms": bound_ms, "bytes": n_bytes}
         print("decode_attention_layer " + json.dumps(rec), flush=True)
-        if b == 1 and cdt == torch.bfloat16 and qdt == torch.bfloat16:
+        if i == 0:
             main = rec
+        del q, ck, cv, bias
     # K2 (single-layer cache) is the same kernel with L = 1
     b = 2
-    q, ck, cv, bias = decode_inputs(b, torch.bfloat16, torch.bfloat16, seed=99)
+    q, ck, cv, bias = decode_inputs(b, bf, bf, seed=99)
     k2, v2 = ck[3], cv[3]  # contiguous (B, H, T, hd) layer views
     got = da.decode_attention(q, k2, v2, bias).float()
     want = da.decode_attention_plain(q, k2, v2, bias).float()
     err = float((got - want).abs().max())
     if err > TOL + TOL * float(want.abs().max()):
         raise AssertionError(f"decode_attention L=1: max |err| {err}")
-    m4 = bias[:, None, None, :].to(torch.bfloat16)
+    m4 = bias[:, None, None, :].to(bf)
     n_bytes = 2 * b * H * T * hd * 2 + 2 * q.numel() * 2 + bias.numel() * 4
-    rec = {"B": b, "cache": "bfloat16", "q": "bfloat16", "max_abs_err": err, "tol": TOL,
+    rec = {"B": b, "cache": "bfloat16", "q": "bfloat16", "keys_per_split": da.split_len(b * H, T, da.SPLIT_BLOCKS_PER_SM * n_sm),
+           "max_abs_err": err, "tol": TOL,
            "ms": time_ms(lambda: da.decode_attention(q, k2, v2, bias)),
            "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k2, v2, bias), iters=50),
            "library_ms": time_ms(lambda: sdpa(q[:, :, None, :], k2, v2, attn_mask=m4)),
            "bound_ms": max(n_bytes / HBM_BYTES_PER_S, 4 * b * H * T * hd / BF16_FLOPS) * 1e3,
            "bound_by": "bytes", "bytes": n_bytes}
+    rec["ratio"] = rec["ms"] / rec["library_ms"]
+    rec["device_ms"], rec["cuda_launches_per_call"] = device_ms(
+        lambda: da.decode_attention(q, k2, v2, bias))
+    rec["library_device_ms"], _ = device_ms(lambda: sdpa(q[:, :, None, :], k2, v2, attn_mask=m4))
+    rec["device_ratio"] = ratio(rec["device_ms"], rec["library_device_ms"])
     print("decode_attention (L=1) " + json.dumps(rec), flush=True)
     return main
 
@@ -194,42 +269,67 @@ def flash_inputs(b, t, hd, dtype, tail, seed, h=4):
 
 
 def check_flash_attention(fa):
-    """K4 vs its plain version on O and LSE at the latent pass's shapes;
-    returns the timing record of the main-path shape (B=1, T=308, bf16)."""
+    """K4 vs its plain version on O and LSE at the latent pass's and the
+    training step's shapes and at the bf16 kernel's tile edges; times
+    kernel, plain version, SDPA with the same boolean mask and, where nothing
+    is masked, SDPA with ``is_causal=True`` (the fused flash backend).
+    Returns the timing records of the main-path shape (B=1, T=308, bf16) and
+    of the training step's (B=8, T=184, bf16)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    main = None
-    for i, (b, t, hd, dt, tail) in enumerate(FLASH_CASES):
+    recs = {}
+    for i, (b, t, hd, dt, tail, lead, unseen, causal) in enumerate(FLASH_CASES):
         h = 4
         q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=100 + i)
-        got_o, got_lse = fa.flash_attention_fwd(q, k, v, valid)
+        if lead:
+            valid[0, :lead] = False
+        if unseen:
+            valid[0] = False
+        got_o, got_lse = fa.flash_attention_fwd(q, k, v, valid, None, causal)
         torch.cuda.synchronize()
-        want_o, want_lse = fa.flash_attention_plain(q, k, v, valid)
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, valid, None, causal)
         err_o = (got_o.float() - want_o.float()).abs()
         err_lse = float((got_lse - want_lse).abs().max())
         tol = FLASH_TOL[dt]
         if not bool((err_o <= tol + tol * want_o.float().abs()).all()) or err_lse > LSE_TOL:
-            raise AssertionError(f"flash_attention B={b} T={t} hd={hd} {dt} tail={tail}: "
+            raise AssertionError(f"flash_attention B={b} T={t} hd={hd} {dt} tail={tail} "
+                                 f"lead={lead} unseen={unseen} causal={causal}: "
                                  f"max |err| O {float(err_o.max())}, LSE {err_lse}")
-        causal = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
-        mask = causal[None, None] & valid[:, None, None, :]
+        mask = valid[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
         elt = q.element_size()
         n_bytes = 4 * b * h * t * hd * elt + b * h * t * 4 + b * t
-        flops = 2 * b * h * t * (t + 1) * hd  # q.k and p.v over the causal pairs
+        # q.k and p.v over the pairs the causal mask keeps
+        flops = 2 * b * h * t * ((t + 1) if causal else 2 * t) * hd
         peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, valid, None, causal))
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+        dev, _ = device_ms(lambda: fa.flash_attention_fwd(q, k, v, valid, None, causal))
+        lib_dev, _ = device_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+        lib_causal_ms = lib_causal_dev = None
+        if causal and not (tail or lead or unseen):
+            lib_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+            lib_causal_dev, _ = device_ms(lambda: sdpa(q, k, v, is_causal=True))
         rec = {"B": b, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
-               "masked_tail": tail, "max_abs_err": float(err_o.max()),
-               "max_abs_err_lse": err_lse, "tol": tol, "tol_lse": LSE_TOL,
-               "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, valid)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, valid), iters=50),
-               "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+               "masked_tail": tail, "masked_lead": lead, "row_without_keys": unseen,
+               "causal": causal, "max_abs_err": float(err_o.max()),
+               "max_abs_err_lse": err_lse, "tol": tol, "tol_lse": LSE_TOL, "ms": ms,
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, valid, None,
+                                                                    causal), iters=50),
+               "library_ms": lib_ms, "ratio": ms / lib_ms,
+               "library_causal_ms": lib_causal_ms,
+               "ratio_causal": ms / lib_causal_ms if lib_causal_ms else None,
+               "device_ms": dev, "library_device_ms": lib_dev, "device_ratio": ratio(dev, lib_dev),
+               "library_causal_device_ms": lib_causal_dev,
+               "device_ratio_causal": ratio(dev, lib_causal_dev),
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
                "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / peak
                else "operations", "bytes": n_bytes, "flops": flops}
         print("flash_attention " + json.dumps(rec), flush=True)
-        if i == 0:
-            main = rec
-    return main
+        recs[b, t, hd, dt, tail, lead, unseen, causal] = rec
+    return (recs[1, 308, 256, torch.bfloat16, 0, 0, False, True],
+            recs[8, 184, 256, torch.bfloat16, 0, 0, False, True])
 
 
 # K5 / K6 vs the plain backward computed in f32 from the same inputs: the
@@ -351,7 +451,8 @@ def check_decode_attention_update(da):
     bf16 / e4m3 caches, bf16 q and one f32 q): ``out`` within TOL on layers
     0, 13, 29; after each call both caches, every layer, bit-equal to the
     plain version's, and the row past the cache end untouched. Also ``out``
-    against the cache write followed by K1 (the same arithmetic: expect 0).
+    against the cache write followed by K1 (the same arithmetic, summed in
+    another order since K1 splits the cache length: f32 rounding).
     Returns the timing record of the 8-slot bf16 configuration."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -400,6 +501,8 @@ def check_decode_attention_update(da):
                 cv[layer, rows, :, inpos] = vn
                 return sdpa(q4, ck[layer], cv[layer], attn_mask=m4)
             lib_ms = time_ms(lib_call)
+        dev, _ = device_ms(lambda: da.decode_attention_update_layer(q, kn, vn, ck, cv, bias, pos,
+                                                                    next(lidx) % L))
         qe = q.element_size()
         n_bytes = (2 * b * H * T * hd * ck.element_size() + 2 * b * H * hd * ck.element_size()
                    + 4 * b * H * hd * qe + bias.numel() * 4 + pos.numel() * pos.element_size())
@@ -407,7 +510,7 @@ def check_decode_attention_update(da):
         rec = {"B": b, "cache": str(cdt).replace("torch.", ""),
                "q": str(qdt).replace("torch.", ""), "max_abs_err": worst, "tol": TOL,
                "max_abs_err_vs_write_then_k1": worst_k1,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev,
                "library_call": "index_put_ of k and v + scaled_dot_product_attention",
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
                "bound_by": "bytes", "bytes": n_bytes}
@@ -838,7 +941,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     k1 = check_decode_attention(da)
     k3 = check_decode_attention_update(da)
-    k4 = check_flash_attention(fa)
+    k4, k4_train = check_flash_attention(fa)
     k56 = check_flash_backward(fa)
 
     # ---- phase 2: a small f32 configuration, card vs CPU
@@ -955,14 +1058,17 @@ def main() -> int:
 
     print(json.dumps({"kernels": [{
         "name": "decode_attention_layer", "route": "cuda",
+        "design": "cache length split over blocks, two passes",
         "source": "genvc_tpu_torch/csrc/decode_attention.cu",
         "replaces": "genvc_tpu/ops/decode_attention.py:160",
         "launches": sum(launches("decode_attention_layer").values()),
         "launches_by_path": launches("decode_attention_layer"),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-        "library_ms": k1["library_ms"]}, {
+        "library_ms": k1["library_ms"], "ratio": k1["ratio"],
+        "cuda_launches_per_call": k1["cuda_launches_per_call"]}, {
         "name": "decode_attention_update_layer", "route": "cuda",
+        "design": "one block per (row, head)",
         "source": "genvc_tpu_torch/csrc/decode_attention.cu",
         "replaces": "genvc_tpu/ops/decode_attention.py:281",
         "launches": sum(launches("decode_attention_update_layer").values()),
@@ -971,16 +1077,20 @@ def main() -> int:
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": "bytes",
         "library_ms": k3["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
+        "design": "bf16 mma.sync tiles, cp.async double buffer",
         "source": "genvc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "genvc_tpu/ops/flash_attention.py:134",
         "launches": sum(launches("flash_attention").values()),
         "launches_by_path": launches("flash_attention"),
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}] + [{
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"], "ratio": k4["ratio"],
+        "training_shape": {key: k4_train[key] for key in (
+            "B", "T", "ms", "library_ms", "library_causal_ms", "ratio", "ratio_causal",
+            "bound_ms")}}] + [{
         # K5 / K6: plain_ms and library_ms (SDPA's backward) are of the whole
         # backward, dq, dk and dv together; ms and bound_ms of the kernel alone
-        "name": name, "route": "cuda",
+        "name": name, "route": "cuda", "design": "f32 FMA from shared memory",
         "source": "genvc_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": replaces,
         "launches": sum(launches(name).values()), "launches_by_path": launches(name),

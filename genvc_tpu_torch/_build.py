@@ -1,15 +1,17 @@
 """Build the port's hand-written CUDA kernels with ``nvcc`` and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-kernel rebuilds), which is loaded with ``ctypes``. Nothing here runs at import
-time: the first launch of a kernel builds it, and :func:`build_all` builds
-several at once, one ``nvcc`` process per source, all started together.
+into ``_build/lib<name>-<hash>.so`` (the hash is of the source and the
+shared ``csrc/*.cuh`` headers, so an edited kernel or header rebuilds), which
+is loaded with ``ctypes``. Nothing here runs at import time: the first launch
+of a kernel builds it, and :func:`build_all` builds several at once, one
+``nvcc`` process per source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -39,10 +41,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> tuple[str, str]:
+    """(source, library path); the library is named by a digest of the
+    source and of every ``csrc/*.cuh`` header, so an edit of either
+    rebuilds."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -14,7 +14,8 @@
 //     __nv_cvt_fp8x2_to_halfraw2 — exact, e4m3 fits in half);
 //   * logits accumulate in f32, are scaled by 1/sqrt(hd), then the bias is
 //     added; the softmax runs in f32;
-//   * probabilities are rounded to bf16 before P.V, which accumulates in f32;
+//   * probabilities are normalised by the row's global max and sum, then
+//     rounded to bf16 before P.V, which accumulates in f32;
 //   * the output takes q's type (bf16 or f32).
 // The layer is read at an offset into the full stacked cache; no slice is
 // copied.
@@ -22,26 +23,40 @@
 // Bound: bytes. Per launch the kernel must read K and V of one layer,
 // 2 * B * H * T * hd * sizeof(cache) bytes (1.57 MB at B=1, H=4, T=384,
 // hd=256, bf16: 0.47 us at 3.35 TB/s); its arithmetic is 4 * B*H*T*hd flops,
-// far below the tensor-core line. The update variant adds one (H, hd) row of
-// K and V written per (row, head): 2 * B * H * hd elements, against the same
-// full-layer read. Design: one block of 256 threads per
-// (row, head); every K/V row is read once with 16-byte (bf16) or 8-byte (e4m3)
-// vector loads, one warp per key row for q.K, then all threads split the
-// (T, hd) block by 8-wide column chunks and key-row groups for P.V. At the
-// streaming shape (B*H = 4 blocks on 132 SMs) the card is mostly idle:
-// splitting T across blocks with a combine pass (flash-decoding) is the next
-// step, left to a later change.
+// far below the tensor-core line.
 //
-// Update variant (decode_attention_update_layer): block (b, h) rounds the
-// new K and V rows to the cache type (bf16 round-to-nearest-even, or e4m3
-// with the rounding and overflow rule of torch's float8_e4m3fn conversion),
-// stores them once at row pos[b] of its own (T, hd) block (dropped when
-// pos[b] is outside [0, T): an idle pool slot runs past the cache end), and
-// keeps their widened values in shared memory. The attention never reads row
-// pos[b] back from global memory (the __ldg path is not coherent with a store
-// of the same kernel): at t == pos[b] it takes the shared copy, i.e. the value
-// as stored. Everything else is the attention above, in the same order, so the
-// result equals the cache write followed by decode_attention_layer bit for bit.
+// K1 / K2 design: the cache length is split across blocks. The grid is
+// (B*H, S): block s takes keys [s * per, (s + 1) * per), and the wrapper
+// picks per (at least 16) so that B*H*S is about four blocks per SM (S = 1
+// once B*H reaches that).
+// The reference normalises by the global max and sum BEFORE rounding the
+// probabilities to bf16, so the split runs in two launches on one stream
+// (the wrapper counts one call):
+//   (a) decode_split_logits: block (bh, s) writes the logits of its range
+//       (scaled, bias added) and its local (m, l) to scratch;
+//   (b) decode_split_pv: block (bh, s) forms the global (M, L) from the S
+//       pairs, rounds p = bf16(exp(x - M) / L) over its range and writes its
+//       partial P.V in f32; the last block of the (bh) group to finish (an
+//       atomic ticket, reset by (a)) sums the S partials in the order
+//       s = 0..S-1 and writes O. With S = 1 the block writes O itself.
+// Each block reads its keys once with 16-byte (bf16) or 8-byte (e4m3) vector
+// loads: one warp per key row for q.K, four rows in flight per warp, 8-wide
+// column chunks times key-row groups for P.V. The split exists for the
+// bytes in flight: one block per (row, head) read 393 KB alone at B = 1. The scratch (logits, S (m, l) pairs, S partial rows,
+// tickets: B*H*(T + S*(hd + 2) + 1) words) is allocated by the wrapper.
+//
+// Update variant (decode_attention_update_layer, K3): one block of 256
+// threads per (row, head), the whole row's probabilities in shared memory.
+// Block (b, h) rounds the new K and V rows to the cache type (bf16
+// round-to-nearest-even, or e4m3 with the rounding and overflow rule of
+// torch's float8_e4m3fn conversion), stores them once at row pos[b] of its
+// own (T, hd) block (dropped when pos[b] is outside [0, T): an idle pool slot
+// runs past the cache end), and keeps their widened values in shared memory.
+// The attention never reads row pos[b] back from global memory (the __ldg
+// path is not coherent with a store of the same kernel): at t == pos[b] it
+// takes the shared copy, i.e. the value as stored. The attention is the same
+// arithmetic as K1's, summed in another order, so the result equals the
+// cache write followed by decode_attention_layer up to f32 rounding.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -158,19 +173,19 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// Shared memory: q (hd) | probabilities (T) | reduction scratch (kWarps) |
-// per-group P.V partial sums (groups * hd, at most kThreads * kVec) | with
-// the update, the new K and V rows as stored (2 * hd).
-size_t smem_bytes(int T, int hd, bool update) {
+// K3's shared memory: q (hd) | probabilities (T) | reduction scratch
+// (kWarps) | per-group P.V partial sums (groups * hd, at most kThreads *
+// kVec) | the new K and V rows as stored (2 * hd).
+size_t smem_bytes(int T, int hd) {
   return sizeof(float) * (size_t(hd) + size_t(T) + kWarps + size_t(kThreads) * kVec +
-                          (update ? 2 * size_t(hd) : 0));
+                          2 * size_t(hd));
 }
 
 // q, k_new, v_new: row b, head h at b * qkv_stride + h * hd (strided views
-// of the fused projection). kUpdate = false is decode_attention_layer.
-template <typename QT, typename CT, bool kUpdate>
+// of the fused projection).
+template <typename QT, typename CT>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
+decode_attn_update_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
                    const QT* __restrict__ v_new, CT* __restrict__ cache_k,
                    CT* __restrict__ cache_v, const float* __restrict__ bias,
                    const void* __restrict__ pos, int pos_i64, int satfinite,
@@ -181,7 +196,7 @@ decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   float* p_s = q_s + hd;
   float* red = p_s + T;
   float* acc = red + kWarps;
-  float* kn_s = acc + kThreads * kVec;  // update only: new rows as stored
+  float* kn_s = acc + kThreads * kVec;  // the new rows as stored
   float* vn_s = kn_s + hd;
 
   const int bh = blockIdx.x;  // b * H + h
@@ -198,22 +213,17 @@ decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   const long long qrow = (long long)b * qkv_stride + (long long)h * hd;
 
   // the row this block writes; -1 (no write, no substitution) past the cache
-  long long row_pos = -1;
-  if (kUpdate) {
-    row_pos = pos_i64 ? static_cast<const long long*>(pos)[b]
-                      : (long long)static_cast<const int*>(pos)[b];
-    if (row_pos < 0 || row_pos >= T) row_pos = -1;
-  }
+  long long row_pos = pos_i64 ? static_cast<const long long*>(pos)[b]
+                              : (long long)static_cast<const int*>(pos)[b];
+  if (row_pos < 0 || row_pos >= T) row_pos = -1;
 
   for (int d = tid; d < hd; d += kThreads) {
     q_s[d] = bf16_round(to_float(q[qrow + d]));
-    if (kUpdate) {
-      const CT kc = to_cache(to_float(k_new[qrow + d]), (CT*)nullptr, satfinite, &kn_s[d]);
-      const CT vc = to_cache(to_float(v_new[qrow + d]), (CT*)nullptr, satfinite, &vn_s[d]);
-      if (row_pos >= 0) {
-        cache_k[base + row_pos * hd + d] = kc;
-        cache_v[base + row_pos * hd + d] = vc;
-      }
+    const CT kc = to_cache(to_float(k_new[qrow + d]), (CT*)nullptr, satfinite, &kn_s[d]);
+    const CT vc = to_cache(to_float(v_new[qrow + d]), (CT*)nullptr, satfinite, &vn_s[d]);
+    if (row_pos >= 0) {
+      cache_k[base + row_pos * hd + d] = kc;
+      cache_v[base + row_pos * hd + d] = vc;
     }
   }
   __syncthreads();
@@ -226,7 +236,7 @@ decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     float s = 0.f;
     if (lane < chunks) {
       float kv[kVec];
-      if (kUpdate && t == row_pos) {
+      if (t == row_pos) {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kv[i] = kn_s[lane * kVec + i];
       } else {
@@ -266,7 +276,7 @@ decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
     for (int t = g; t < T; t += groups) {
       const float p = p_s[t];
       float vv[kVec];
-      if (kUpdate && t == row_pos) {
+      if (t == row_pos) {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) vv[i] = vn_s[c * kVec + i];
       } else {
@@ -286,13 +296,240 @@ decode_attn_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
   }
 }
 
-template <typename QT, typename CT, bool kUpdate>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* ck,
-                   void* cv, const void* bias, const void* pos, int pos_i64,
-                   int satfinite, void* out, int B, int H, int T, int hd,
-                   long long layer_offset, long long qkv_stride, cudaStream_t stream) {
-  const size_t smem = smem_bytes(T, hd, kUpdate);
-  auto kernel = decode_attn_kernel<QT, CT, kUpdate>;
+// ---- K1 / K2: the cache length split across blocks (see the note at the top)
+
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kKeysInFlight = 4;  // key rows a warp loads at once in (a)
+constexpr int kProbChunk = kSplitThreads;  // probabilities per round in (b), one a thread
+
+// scratch layout, in 4-byte words: logits [BH][T] | (m, l) [BH][S][2] |
+// partial P.V [BH][S][hd] | tickets [BH]
+struct SplitScratch {
+  float* logits;
+  float* ml;
+  float* partial;
+  int* tickets;
+};
+
+size_t split_scratch_words(long long bh, int T, int hd, int S) {
+  return (size_t)bh * ((size_t)T + (size_t)S * (2 + (size_t)hd) + 1);
+}
+
+SplitScratch carve(void* scratch, long long bh, int T, int hd, int S) {
+  float* f = static_cast<float*>(scratch);
+  SplitScratch r;
+  r.logits = f;
+  r.ml = r.logits + (size_t)bh * T;
+  r.partial = r.ml + (size_t)bh * S * 2;
+  r.tickets = reinterpret_cast<int*>(r.partial + (size_t)bh * S * hd);
+  return r;
+}
+
+// (a) logits of keys [s * per, (s + 1) * per) and their local (max, sum)
+template <typename QT, typename CT>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_split_logits(const QT* __restrict__ q, const CT* __restrict__ cache_k,
+                    const float* __restrict__ bias, SplitScratch scr, int H, int T,
+                    int hd, int per, float scale, long long layer_offset) {
+  __shared__ float q_s[kMaxHd];
+  __shared__ float m_w[kSplitWarps];
+  __shared__ float l_w[kSplitWarps];
+  const int bh = blockIdx.x;
+  const int s = blockIdx.y;
+  const int S = gridDim.y;
+  const int b = bh / H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunks = hd / kVec;
+  const int t0 = s * per;
+  const int t1 = min(T, t0 + per);
+  const CT* K = cache_k + layer_offset + (long long)bh * T * hd;
+  const float* brow = bias + (long long)b * T;
+  float* lrow = scr.logits + (long long)bh * T;
+
+  if (s == 0 && tid == 0) scr.tickets[bh] = 0;  // for (b)'s ticket
+  for (int d = tid; d < hd; d += kSplitThreads)
+    q_s[d] = bf16_round(to_float(q[(long long)bh * hd + d]));
+  __syncthreads();
+
+  // q . K^T: one warp per key row, kKeysInFlight rows at a time; lane
+  // `lane` owns columns [8*lane, 8*lane+8). Each warp keeps the running
+  // (max, sum of exp) of its logits.
+  float qv[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) qv[i] = lane < chunks ? q_s[lane * kVec + i] : 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+  for (int t = t0 + warp * kKeysInFlight; t < t1; t += kSplitWarps * kKeysInFlight) {
+    float x[kKeysInFlight];
+#pragma unroll
+    for (int u = 0; u < kKeysInFlight; ++u) {
+      x[u] = 0.f;
+      if (lane < chunks && t + u < t1) {
+        float kv[kVec];
+        load8(K + (long long)(t + u) * hd + lane * kVec, kv);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) x[u] = fmaf(qv[i], kv[i], x[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kKeysInFlight; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x[u] += __shfl_xor_sync(0xffffffffu, x[u], o);
+      if (t + u < t1) {
+        const float logit = x[u] * scale + brow[t + u];
+        if (lane == 0) lrow[t + u] = logit;
+        const float m_new = fmaxf(m, logit);
+        l = l * expf(m - m_new) + expf(logit - m_new);
+        m = m_new;
+      }
+    }
+  }
+  if (lane == 0) {
+    m_w[warp] = m;
+    l_w[warp] = l;
+  }
+  __syncthreads();
+  if (tid == 0) {  // a warp without keys has m = -inf, l = 0: no term
+    float big_m = m_w[0];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w) big_m = fmaxf(big_m, m_w[w]);
+    float big_l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w)
+      if (l_w[w] > 0.f) big_l += l_w[w] * expf(m_w[w] - big_m);
+    scr.ml[((long long)bh * S + s) * 2] = big_m;
+    scr.ml[((long long)bh * S + s) * 2 + 1] = big_l;
+  }
+}
+
+// (b) p over keys [s * per, (s + 1) * per) with the global (M, L), the
+// partial P.V, and the fixed-order combine by the group's last block
+template <typename QT, typename CT>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_split_pv(const CT* __restrict__ cache_v, SplitScratch scr, QT* __restrict__ out,
+                int T, int hd, int per, long long layer_offset) {
+  __shared__ float p_s[kProbChunk];
+  __shared__ float acc[kSplitThreads * kVec];
+  __shared__ float ml_s[2];
+  __shared__ int last_s;
+  const int bh = blockIdx.x;
+  const int s = blockIdx.y;
+  const int S = gridDim.y;
+  const int tid = threadIdx.x;
+  const int t0 = s * per;
+  const int t1 = min(T, t0 + per);
+  const float* lrow = scr.logits + (long long)bh * T;
+  const float* ml = scr.ml + (long long)bh * S * 2;
+  float x = t0 + tid < t1 ? lrow[t0 + tid] : 0.f;  // loaded while (M, L) forms
+
+  // global max and sum of the row from the S (m, l) pairs: warp 0, the same
+  // fixed reduction tree in every block of the group
+  if (tid < 32) {
+    float M = -INFINITY;
+    for (int i = tid; i < S; i += 32) M = fmaxf(M, ml[2 * i]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float L = 0.f;
+    for (int i = tid; i < S; i += 32) L += ml[2 * i + 1] * expf(ml[2 * i] - M);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+    if (tid == 0) {
+      ml_s[0] = M;
+      ml_s[1] = L;
+    }
+  }
+  __syncthreads();
+  const float M = ml_s[0];
+  const float L = ml_s[1];
+
+  // P . V: thread (g, c) sums key rows g, g + groups, ... of column chunk c
+  const int chunks = hd / kVec;
+  const int groups = kSplitThreads / chunks;
+  const int c = tid % chunks;
+  const int g = tid / chunks;
+  const CT* V = cache_v + layer_offset + (long long)bh * T * hd;
+  float o[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) o[i] = 0.f;
+  for (int r0 = t0; r0 < t1; r0 += kProbChunk) {
+    const int n = min(kProbChunk, t1 - r0);
+    if (tid < n) p_s[tid] = bf16_round(expf(x - M) / L);
+    __syncthreads();
+    const int next = r0 + kProbChunk + tid;
+    x = next < t1 ? lrow[next] : 0.f;
+    if (g < groups) {
+#pragma unroll 4
+      for (int i = g; i < n; i += groups) {
+        const float p = p_s[i];
+        float vv[kVec];
+        load8(V + (long long)(r0 + i) * hd + c * kVec, vv);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) o[k] = fmaf(p, vv[k], o[k]);
+      }
+    }
+    __syncthreads();
+  }
+  if (g < groups) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[g * hd + c * kVec + i] = o[i];
+  }
+  __syncthreads();
+  float* part = scr.partial + ((long long)bh * S + s) * hd;
+  for (int d = tid; d < hd; d += kSplitThreads) {
+    float r = 0.f;
+    for (int gg = 0; gg < groups; ++gg) r += acc[gg * hd + d];
+    if (S == 1)
+      store(out + (long long)bh * hd + d, r);
+    else
+      part[d] = r;
+  }
+  if (S == 1) return;
+
+  // the group's last block to get here combines the S partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(scr.tickets + bh, 1) == S - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* parts = scr.partial + (long long)bh * S * hd;
+  for (int d = tid; d < hd; d += kSplitThreads) {
+    float r = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < S; ++i) r += __ldcg(parts + (long long)i * hd + d);
+    store(out + (long long)bh * hd + d, r);
+  }
+}
+
+template <typename QT, typename CT>
+cudaError_t launch_split(const void* q, const void* ck, const void* cv, const void* bias,
+                         void* out, void* scratch, int B, int H, int T, int hd, int per,
+                         long long layer_offset, cudaStream_t stream) {
+  const int S = (T + per - 1) / per;
+  const SplitScratch scr = carve(scratch, (long long)B * H, T, hd, S);
+  const dim3 grid(B * H, S);
+  decode_split_logits<QT, CT><<<grid, kSplitThreads, 0, stream>>>(
+      static_cast<const QT*>(q), static_cast<const CT*>(ck),
+      static_cast<const float*>(bias), scr, H, T, hd, per, 1.0f / sqrtf((float)hd),
+      layer_offset);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_split_pv<QT, CT><<<grid, kSplitThreads, 0, stream>>>(
+      static_cast<const CT*>(cv), scr, static_cast<QT*>(out), T, hd, per, layer_offset);
+  return cudaGetLastError();
+}
+
+template <typename QT, typename CT>
+cudaError_t launch_update(const void* q, const void* k_new, const void* v_new, void* ck,
+                          void* cv, const void* bias, const void* pos, int pos_i64,
+                          int satfinite, void* out, int B, int H, int T, int hd,
+                          long long layer_offset, long long qkv_stride,
+                          cudaStream_t stream) {
+  const size_t smem = smem_bytes(T, hd);
+  auto kernel = decode_attn_update_kernel<QT, CT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -306,64 +543,69 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* ck
   return cudaGetLastError();
 }
 
-template <bool kUpdate>
-int dispatch(const void* q, const void* k_new, const void* v_new, const void* ck,
-             const void* cv, const void* bias, const void* pos, int pos_i64,
-             int satfinite, void* out, int L, int B, int H, int T, int hd, int layer,
-             long long qkv_stride, int q_bf16, int cache_fp8, void* stream) {
-  if (hd <= 0 || hd % kVec != 0 || hd > kMaxHd || T <= 0 || layer < 0 ||
-      layer >= L || B <= 0 || H <= 0 || qkv_stride < (long long)H * hd)
-    return (int)cudaErrorInvalidValue;
-  const long long offset = (long long)layer * B * H * T * hd;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* k = const_cast<void*>(ck);
-  void* v = const_cast<void*>(cv);
-  cudaError_t err;
-  if (q_bf16) {
-    err = cache_fp8
-        ? launch<__nv_bfloat16, __nv_fp8_e4m3, kUpdate>(q, k_new, v_new, k, v, bias, pos, pos_i64, satfinite, out, B, H, T, hd, offset, qkv_stride, s)
-        : launch<__nv_bfloat16, __nv_bfloat16, kUpdate>(q, k_new, v_new, k, v, bias, pos, pos_i64, satfinite, out, B, H, T, hd, offset, qkv_stride, s);
-  } else {
-    err = cache_fp8
-        ? launch<float, __nv_fp8_e4m3, kUpdate>(q, k_new, v_new, k, v, bias, pos, pos_i64, satfinite, out, B, H, T, hd, offset, qkv_stride, s)
-        : launch<float, __nv_bfloat16, kUpdate>(q, k_new, v_new, k, v, bias, pos, pos_i64, satfinite, out, B, H, T, hd, offset, qkv_stride, s);
-  }
-  return (int)err;
+// f(QT{}, CT{}) for the runtime types of q (bf16 or f32) and the cache
+// (bf16 or e4m3)
+template <typename F>
+cudaError_t with_types(int q_bf16, int cache_fp8, F&& f) {
+  if (q_bf16)
+    return cache_fp8 ? f(__nv_bfloat16{}, __nv_fp8_e4m3{}) : f(__nv_bfloat16{}, __nv_bfloat16{});
+  return cache_fp8 ? f(float{}, __nv_fp8_e4m3{}) : f(float{}, __nv_bfloat16{});
+}
+
+bool valid_shape(int L, int B, int H, int T, int hd, int layer) {
+  return hd > 0 && hd % kVec == 0 && hd <= kMaxHd && T > 0 && layer >= 0 &&
+         layer < L && B > 0 && H > 0;
 }
 
 }  // namespace
 
 // q (B, H, hd) f32 (q_bf16 = 0) or bf16 (q_bf16 = 1); caches (L, B, H, T, hd)
 // bf16 (cache_fp8 = 0) or e4m3 (cache_fp8 = 1), contiguous and 16-byte
-// aligned; bias (B, T) f32; out (B, H, hd) in q's type. Returns a cudaError_t.
+// aligned; bias (B, T) f32; out (B, H, hd) in q's type; the cache length
+// split into ranges of `per` keys; scratch of
+// genvc_decode_attention_scratch_bytes bytes, 16-byte aligned. Two launches.
+// Returns a cudaError_t.
 extern "C" int genvc_decode_attention_layer(
     const void* q, const void* cache_k, const void* cache_v, const void* bias,
-    void* out, int L, int B, int H, int T, int hd, int layer, int q_bf16,
-    int cache_fp8, void* stream) {
-  return dispatch<false>(q, nullptr, nullptr, cache_k, cache_v, bias, nullptr, 0, 0,
-                         out, L, B, H, T, hd, layer, (long long)H * hd, q_bf16,
-                         cache_fp8, stream);
+    void* out, void* scratch, int L, int B, int H, int T, int hd, int layer,
+    int q_bf16, int cache_fp8, int per, void* stream) {
+  if (!valid_shape(L, B, H, T, hd, layer) || per < 1 || (T + per - 1) / per > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long offset = (long long)layer * B * H * T * hd;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_types(q_bf16, cache_fp8, [&](auto qt, auto ct) {
+    return launch_split<decltype(qt), decltype(ct)>(q, cache_k, cache_v, bias, out,
+                                                    scratch, B, H, T, hd, per, offset, s);
+  });
 }
 
-// decode_attention_update_layer: as above, after writing k_new / v_new (q's
-// type) at row pos[b] (int32, or int64 when pos_i64) of layer `layer`, in
-// place; rows with pos[b] outside [0, T) are not written. q, k_new, v_new
-// have rows qkv_stride elements apart, heads hd apart. satfinite: an e4m3
-// overflow saturates (1) or becomes NaN (0). The bias marks pos[b] valid.
+extern "C" size_t genvc_decode_attention_scratch_bytes(int B, int H, int T, int hd,
+                                                       int per) {
+  return 4 * split_scratch_words((long long)B * H, T, hd, (T + per - 1) / per);
+}
+
+// decode_attention_update_layer: write k_new / v_new (q's type) at row
+// pos[b] (int32, or int64 when pos_i64) of layer `layer`, in place (rows
+// with pos[b] outside [0, T) are not written), then attend with q as above.
+// q, k_new, v_new have rows qkv_stride elements apart, heads hd apart.
+// satfinite: an e4m3 overflow saturates (1) or becomes NaN (0). The bias
+// marks pos[b] valid. One launch, no scratch.
 extern "C" int genvc_decode_attention_update_layer(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
     void* cache_v, const void* bias, const void* pos, void* out, int L, int B,
     int H, int T, int hd, int layer, long long qkv_stride, int q_bf16,
     int cache_fp8, int pos_i64, int satfinite, void* stream) {
-  return dispatch<true>(q, k_new, v_new, cache_k, cache_v, bias, pos, pos_i64,
-                        satfinite, out, L, B, H, T, hd, layer, qkv_stride, q_bf16,
-                        cache_fp8, stream);
-}
-
-extern "C" size_t genvc_decode_attention_smem_bytes(int T, int hd) {
-  return smem_bytes(T, hd, false);
+  if (!valid_shape(L, B, H, T, hd, layer) || qkv_stride < (long long)H * hd)
+    return (int)cudaErrorInvalidValue;
+  const long long offset = (long long)layer * B * H * T * hd;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_types(q_bf16, cache_fp8, [&](auto qt, auto ct) {
+    return launch_update<decltype(qt), decltype(ct)>(q, k_new, v_new, cache_k, cache_v,
+                                                     bias, pos, pos_i64, satfinite, out,
+                                                     B, H, T, hd, offset, qkv_stride, s);
+  });
 }
 
 extern "C" size_t genvc_decode_attention_update_smem_bytes(int T, int hd) {
-  return smem_bytes(T, hd, true);
+  return smem_bytes(T, hd);
 }

@@ -20,18 +20,19 @@ Numerics (those of the Pallas body): q rounded to bf16, K/V widened from
 their storage type, logits in f32 scaled by 1/sqrt(hd) then biased, softmax
 in f32, probabilities rounded to bf16 before P.V, which accumulates in f32.
 
-Bound on the card: bytes. A launch must read one layer of K and V,
+Bound on the card: bytes. A call must read one layer of K and V,
 ``2 * B * H * T * hd * sizeof(cache)`` bytes — 1.57 MB at the streaming shape
 (B=1, H=4, T=384, hd=256, bf16), 0.47 us at 3.35 TB/s — for 4*B*H*T*hd flops.
-The design reads each K/V row once with vector loads and widens in registers
-(no materialized upcast copy); see the source for the thread layout and what a
-later change should do about the 4-block grid at B=1.
+K1 splits the cache length across blocks so that B*H*S blocks fill the SMs
+(:func:`split_len`): a logits pass and a P.V pass with a fixed-order combine,
+two CUDA launches per call, normalising by the global max and sum before the
+bf16 rounding as the reference does; see the source.
 
-``decode_attention_layer`` runs the kernel for CUDA tensors and the plain
+``decode_attention_layer`` runs the kernels for CUDA tensors and the plain
 PyTorch version (:func:`decode_attention_layer_plain`, same casts) only for
-CPU tensors; anything the kernel does not take raises. Each kernel launch adds
-one to ``decode_attention_layer.launches``; ``decode_attention_update_layer``
-likewise, with its own count.
+CPU tensors; anything the kernels do not take raises. Each call that
+launches them adds one to ``decode_attention_layer.launches``;
+``decode_attention_update_layer`` likewise, with its own count.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ import torch
 
 _F8 = torch.float8_e4m3fn
 MAX_HD = 256
+MIN_SPLIT_KEYS = 16  # keys per range of K1's split, at least (but the last)
+SPLIT_BLOCKS_PER_SM = 4  # K1's blocks (4 warps each) per SM the split aims at
 
 
 def decode_attention_layer_plain(q, cache_k, cache_v, bias, layer_idx):
@@ -124,16 +127,16 @@ def decode_attention_layer(q, cache_k, cache_v, bias, layer_idx):
     _check_cuda(q, cache_k, cache_v)
     lib = _lib()
     n_layers, b, h, t, hd = cache_k.shape
-    if lib.genvc_decode_attention_smem_bytes(t, hd) > 227 * 1024:
-        raise ValueError(f"cache length {t} needs more shared memory than a "
-                         "block has")
+    per = split_len(b * h, t, SPLIT_BLOCKS_PER_SM * _sm_count(q.device))
     q = q.contiguous()
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
+    scratch = torch.empty(lib.genvc_decode_attention_scratch_bytes(b, h, t, hd, per),
+                          dtype=torch.uint8, device=q.device)
     err = lib.genvc_decode_attention_layer(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), n_layers, b, h, t, hd, int(layer_idx),
-        int(q.dtype == torch.bfloat16), int(cache_k.dtype == _F8),
+        out.data_ptr(), scratch.data_ptr(), n_layers, b, h, t, hd, int(layer_idx),
+        int(q.dtype == torch.bfloat16), int(cache_k.dtype == _F8), per,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
@@ -143,6 +146,18 @@ def decode_attention_layer(q, cache_k, cache_v, bias, layer_idx):
 
 
 decode_attention_layer.launches = 0
+
+
+def split_len(bh, t, n_blocks):
+    """K1's split of the cache length: keys per range, at least
+    ``MIN_SPLIT_KEYS``, so that the ``bh * ceil(t / len)`` blocks are about
+    ``n_blocks`` (one range once ``bh`` reaches it)."""
+    return max(MIN_SPLIT_KEYS, -(-t // -(-n_blocks // bh)))
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(q, cache_k, cache_v):
@@ -247,15 +262,17 @@ def _lib():
     lib = _build.load("decode_attention")
     fn = lib.genvc_decode_attention_layer
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        scratch = lib.genvc_decode_attention_scratch_bytes
+        scratch.argtypes = [ctypes.c_int] * 5
+        scratch.restype = ctypes.c_size_t
         up = lib.genvc_decode_attention_update_layer
         up.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         up.restype = ctypes.c_int
-        for sm in (lib.genvc_decode_attention_smem_bytes,
-                   lib.genvc_decode_attention_update_smem_bytes):
-            sm.argtypes = [ctypes.c_int, ctypes.c_int]
-            sm.restype = ctypes.c_size_t
+        sm = lib.genvc_decode_attention_update_smem_bytes
+        sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        sm.restype = ctypes.c_size_t
     return lib

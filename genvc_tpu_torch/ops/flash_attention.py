@@ -19,7 +19,10 @@ Forward numerics (those of the Pallas body, not of the dense
 -1e9 where the key is invalid or, under ``causal``, col > row; m = rowmax,
 p = exp(s - m), l = sum p over the Pallas kernel's key width (T padded to a
 multiple of 128 with invalid keys); O = (p.v) / l in f32 with no rounding of
-p, cast to q's dtype; LSE = m + log(l).
+p, cast to q's dtype; LSE = m + log(l). One deliberate difference on the
+card: the bf16 kernel runs both products on the tensor cores and rounds p to
+bf16 before P.V (l and LSE still from the f32 p), an error under the bf16
+output's own rounding; the f32 kernel and the plain version do not round p.
 
 Backward numerics (the Pallas dq and dk/dv bodies): the same masked s,
 p = exp(s - LSE) from the saved LSE, dp = dO.v^T, ds = p * (dp - D) with

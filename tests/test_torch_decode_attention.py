@@ -80,16 +80,87 @@ def test_torch_decode_attention_rejects_what_the_kernel_does_not_take():
         tda.decode_attention_layer(tq, tk, tv, tb[:, :8], 0)
 
 
-@pytest.mark.cuda
+# ---- K1's split of the cache length, carried out in torch on the CPU
+
+
+def _split_attention(q, ck, cv, bias, layer, n_split):
+    """The arithmetic of K1's split kernels (csrc/decode_attention.cu) in
+    torch: (a) per key range, the logits (scaled, bias added) and the local
+    (max, sum of exp); (b) the global (M, L) from the S pairs, p =
+    bf16(exp(x - M) / L) per range, the range's P.V in f32; then the partials
+    summed in the order s = 0..S-1."""
+    hd, t = q.shape[-1], ck.shape[3]
+    per = -(-t // n_split)
+    k = ck[layer].to(torch.bfloat16).float()
+    v = cv[layer].to(torch.bfloat16).float()
+    qf = q.to(torch.bfloat16).float()
+    logits = torch.einsum("bhd,bhtd->bht", qf, k) * (1.0 / np.sqrt(hd)) + bias[:, None, :]
+    ranges = [(s * per, min(t, (s + 1) * per)) for s in range(n_split)]
+    m = torch.stack([logits[..., a:b].amax(-1) for a, b in ranges])       # (S, B, H)
+    l = torch.stack([torch.exp(logits[..., a:b] - m[i, ..., None]).sum(-1)
+                     for i, (a, b) in enumerate(ranges)])
+    big_m = m.amax(0)
+    big_l = (l * torch.exp(m - big_m)).sum(0)
+    out = torch.zeros_like(qf)
+    for a, b in ranges:
+        p = (torch.exp(logits[..., a:b] - big_m[..., None]) / big_l[..., None])
+        out = out + torch.einsum("bht,bhtd->bhd", p.to(torch.bfloat16).float(), v[:, :, a:b])
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8])  # 8 = T / 32
+@pytest.mark.parametrize("qd", ["bf16", "f32"])
 @pytest.mark.parametrize("cache", ["bf16", "e4m3"])
-def test_torch_cuda_kernel_matches_plain(cache):
+def test_torch_split_arithmetic_matches_jax_kernel_and_plain(cache, qd, n_split):
+    """K1's split normalises by the global max and sum before the bf16
+    rounding, as the Pallas body does: within TOL of the Pallas kernel
+    (interpret mode) and of the plain version, the row with one valid key
+    included. TOL, because the bf16 probabilities round at 2^-8 and the f32
+    sums run in another order."""
+    (jq, jk, jv, jb), (tq, tk, tv, tb) = _inputs(cache, qd, seed=5)
+    tol = CACHE[cache][2]
+    layer = 1
+    got = _split_attention(tq, tk, tv, tb, layer, n_split)
+    want = np.asarray(jda.decode_attention_layer(jq, jk, jv, jb, layer, interpret=True),
+                      np.float32)
+    plain = tda.decode_attention_layer_plain(tq, tk, tv, tb, layer)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got[0].float().numpy(), tv[layer, 0, :, 0].float().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("n_blocks", [528, 132, 16])
+def test_torch_split_len_covers_the_cache_with_nonempty_ranges(n_blocks):
+    """The wrapper's split: ranges of at least MIN_SPLIT_KEYS keys (the last
+    may be shorter, never empty); B*H*S at least half the block target when
+    the cache is long enough, one range once B*H reaches the target."""
+    for bh in (1, 4, 16, 64, 132, 200, 600):
+        for t in (1, 15, 16, 17, 128, 384, 1000, 1024):
+            per = tda.split_len(bh, t, n_blocks)
+            s = -(-t // per)  # the kernel's grid.y
+            assert per >= tda.MIN_SPLIT_KEYS and (s - 1) * per < t <= s * per
+            if bh >= n_blocks:
+                assert s == 1
+            elif t >= tda.MIN_SPLIT_KEYS * -(-n_blocks // bh):
+                assert 2 * bh * s >= n_blocks
+
+
+# (B, T, cache layers): the flagship cache (30 layers, B = 16, T = 384) read at
+# its first and last layer, and the split's edges at fewer layers
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,n_layers", [(16, 384, 30), (1, 128, 4), (1, 384, 30),
+                                           (4, 1024, 4), (16, 1024, 4)])
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+def test_torch_cuda_kernel_matches_plain(cache, b, t, n_layers):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, (tq, tk, tv, tb) = _inputs(cache, "bf16", L=30, b=16, h=4, t=384, hd=256)
+    _, (tq, tk, tv, tb) = _inputs(cache, "bf16", L=n_layers, b=b, h=4, t=t, hd=256)
     tq, tk, tv, tb = (x.cuda() for x in (tq, tk, tv, tb))
     tol = CACHE[cache][2]
     before = tda.decode_attention_layer.launches
-    for layer in (0, 29):
+    for layer in (0, n_layers - 1):
         got = tda.decode_attention_layer(tq, tk, tv, tb, layer).float().cpu()
         want = tda.decode_attention_layer_plain(tq, tk, tv, tb, layer).float().cpu()
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=tol)

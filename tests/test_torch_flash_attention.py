@@ -93,16 +93,111 @@ def test_torch_flash_attention_rejects_what_the_kernel_does_not_take():
         tfa.flash_attention(*(x.to("meta") for x in (tq, tk, tv, tvalid)))
 
 
+# ---- the bf16 kernel's tile arithmetic (csrc/flash_attention.cu), in torch
+
+TILE_WARPS, TILE_SLICE = 4, 16  # warps of a block; keys of a tile per warp
+
+
+def _tile_attention(q, k, v, valid, scale, causal):
+    """What the bf16 kernel computes, in f32 torch: each warp runs an online
+    softmax over its 16 keys of every 64-key tile (keys past T masked, their
+    v zero) with p rounded to bf16 before P.V; the four warps' (m, l, O) are
+    combined, and the padded columns (to a multiple of 128) that were not
+    summed are added to l. Slices the kernel skips past the causal diagonal
+    are all masked for their tile's rows, so running them too changes no
+    number. Returns (O in q's dtype, LSE)."""
+    b, h, t, hd = q.shape
+    neg = -1e9
+    tile = TILE_WARPS * TILE_SLICE
+    t_keys = -(-t // tile) * tile
+    pad = t_keys - t
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    ok = torch.nn.functional.pad(valid, (0, pad), value=False)[:, None, None, :]
+    if causal:
+        col = torch.arange(t_keys)
+        ok = ok & (col[None, :] <= torch.arange(t)[:, None])
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    s = torch.where(ok, s, torch.full_like(s, neg))
+    ms, ls, os_ = [], [], []
+    for w in range(TILE_WARPS):
+        m = torch.full((b, h, t, 1), neg)
+        l = torch.zeros(b, h, t, 1)
+        o = torch.zeros(b, h, t, hd)
+        for k0 in range(w * TILE_SLICE, t_keys, tile):
+            sl = s[..., k0:k0 + TILE_SLICE]
+            m_new = torch.maximum(m, sl.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sl - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + torch.matmul(p.to(torch.bfloat16).float(),
+                                         vf[:, :, k0:k0 + TILE_SLICE])
+            m = m_new
+        ms.append(m), ls.append(l), os_.append(o)
+    m = torch.stack(ms).amax(0)
+    f = [torch.exp(mw - m) for mw in ms]
+    l = sum(lw * fw for lw, fw in zip(ls, f))
+    l = l + (-(-t // 128) * 128 - t_keys) * torch.exp(neg - m)
+    o = sum(ow * fw for ow, fw in zip(os_, f)) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 200])
+def test_torch_flash_tile_arithmetic_with_bf16_p_matches_pallas_kernel(t, causal):
+    """The bf16 kernel's arithmetic (p rounded to bf16 before P.V, per-warp
+    online softmax, in-block combine) against the Pallas forward in
+    interpret mode, bf16 inputs: O within 1e-2 (FLASH_TOL: O rounds to bf16
+    on both sides, p's rounding adds 2^-9 of each weight), LSE within 1e-4
+    (from the f32 p). A masked tail in batch row 1; in batch row 0 the
+    first 5 keys masked (causal: rows 0-4 see no valid key) or every key
+    (not causal): such rows take the uniform mean over the padded width."""
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs("bf16", t=t, seed=7)
+    valid = np.ones((2, t), bool)
+    valid[1, t - 37:] = False
+    if causal:
+        valid[0, :5] = False
+    else:
+        valid[0] = False
+    scale = 1.0 / np.sqrt(tq.shape[-1])
+    want_o, want_lse = _pallas_attention(jq, jk, jv, jnp.asarray(valid), scale, causal,
+                                         interpret=True)
+    got_o, got_lse = _tile_attention(tq, tk, tv, torch.from_numpy(valid), scale, causal)
+    assert got_o.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_o.float().numpy(), np.asarray(want_o, np.float32),
+                               atol=1e-2, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=0)
+    unseen = got_o[0, :, :5] if causal else got_o[0]
+    np.testing.assert_allclose(unseen.float().numpy(),
+                               np.broadcast_to(tv[0].float().sum(1, keepdim=True).numpy()
+                                               / -(-t // 128) / 128, unseen.shape),
+                               atol=1e-2, rtol=0)
+
+
+# (B, T, hd, masked tail of the last row, masked leading keys of row 0, row 0
+# all masked, causal): the latent pass, the training step, and the bf16
+# kernel's tile edges (16 query rows, 64 keys a tile; hd padded to 16)
+CUDA_FLASH_CASES = [(1, 308, 256, 50, 0, False, True), (8, 184, 256, 0, 0, False, True),
+                    (1, 11, 256, 0, 0, False, True), (2, 77, 256, 5, 0, False, True),
+                    (2, 184, 64, 9, 0, False, True), (2, 184, 72, 9, 0, False, True),
+                    (2, 184, 256, 0, 37, False, True), (2, 136, 256, 11, 0, True, False)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_FLASH_CASES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_torch_cuda_flash_kernel_matches_plain(dt):
+def test_torch_cuda_flash_kernel_matches_plain(dt, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, cpu_in = _inputs(dt, b=1, h=4, t=308, hd=256, tail=50)
+    b, t, hd, tail, lead, unseen, causal = case
+    _, cpu_in = _inputs(dt, b=b, h=4, t=t, hd=hd, tail=tail)
     tq, tk, tv, tvalid = (x.cuda() for x in cpu_in)
+    tvalid[0, :lead] = False
+    if unseen:
+        tvalid[0] = False
     before = tfa.flash_attention.launches
-    got_o, got_lse = tfa.flash_attention_fwd(tq, tk, tv, tvalid)
-    want_o, want_lse = tfa.flash_attention_plain(tq, tk, tv, tvalid)
+    got_o, got_lse = tfa.flash_attention_fwd(tq, tk, tv, tvalid, None, causal)
+    want_o, want_lse = tfa.flash_attention_plain(tq, tk, tv, tvalid, None, causal)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
     np.testing.assert_allclose(got_o.float().cpu().numpy(), want_o.float().cpu().numpy(),
