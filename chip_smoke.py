@@ -12,8 +12,13 @@ and attention of the serving pool: caches bit-equal to the plain version's,
 a row past the cache end untouched) at the pool's shapes, K4 (flash-attention
 forward, O and LSE; bf16 on the tensor cores) at the latent pass's and the
 training step's shapes and at its tile edges, K5 / K6 (flash-attention
-backward: dq; dk and dv) at the training step's shapes. Kernel / library
-ratios are printed for K1, K2 and K4.
+backward: dq; dk and dv; bf16 on the tensor cores) at the training step's
+shapes (T = 184 and 328) and at tile edges, with device times (a
+``torch.profiler`` trace) beside SDPA's backward. It holds K1 and K3 to the
+JAX package's e4m3 rule at overflow (0x7F / 0xFF stored past 464, read as
++-480) and records each build's registers, spills and shared memory
+(``-Xptxas -v``). Kernel / library ratios are printed for K1, K2, K4 and
+K5 + K6.
 
 Phase 2 runs a small f32 configuration on the card and on the CPU with the
 same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -334,19 +340,28 @@ def check_flash_attention(fa):
 
 # K5 / K6 vs the plain backward computed in f32 from the same inputs: the
 # kernels sum in f32 in a fixed order; a bf16 dq / dk / dv is then rounded to
-# bf16 (2^-8 relative) while the f32 reference is not.
+# bf16 (2^-8 relative) while the f32 reference is not, and the bf16 kernels
+# round p and ds to bf16 before the second products (ds in two bf16 parts
+# where a row sees no valid key).
 BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # (B, T, hd, dtype, masked key tail of the last row, masked leading keys of
 # row 0, row 0 all masked, causal): the training step's shape (32 cond + 52
 # text + 100 audio positions at 50-token texts), the recipe's 100-token
 # maximum, a masked tail, f32 with rows before the first valid key, the small
-# configuration's hd = 16, and non-causal with a row that sees no valid key
+# configuration's hd = 16, and non-causal with a row that sees no valid key;
+# then the bf16 kernels' edges: rows before the first valid key (ds in two
+# parts), and hd = 72 (padded to 80 in shared memory) with a row that sees
+# no valid key
 BWD_CASES = [(8, 184, 256, torch.bfloat16, 0, 0, False, True),
              (8, 328, 256, torch.bfloat16, 0, 0, False, True),
              (8, 184, 256, torch.bfloat16, 37, 0, False, True),
              (2, 184, 256, torch.float32, 37, 5, False, True),
              (2, 184, 16, torch.float32, 23, 0, False, True),
-             (2, 136, 64, torch.float32, 11, 0, True, False)]
+             (2, 136, 64, torch.float32, 11, 0, True, False),
+             (2, 328, 256, torch.bfloat16, 45, 37, False, True),
+             (2, 136, 72, torch.bfloat16, 11, 0, True, False)]
+# the rows timed on the device as well (T = 184 and 328 at the step's B = 8)
+BWD_DEVICE_ROWS = (0, 1)
 
 
 def check_flash_backward(fa):
@@ -354,11 +369,12 @@ def check_flash_backward(fa):
     step's shapes: q, k, v strided views of the fused projection, dO the
     (B, H, T, hd) view of a (B, T, H, hd) gradient, as the step gives them.
     Times K5, K6, their wrapper (with D = rowsum(dO * O)), the plain version
-    and SDPA's backward (additive mask, autograd, forward time subtracted).
-    Returns the records of the main shape (B=8, T=184, bf16) for K5 and K6."""
+    and SDPA's backward (additive mask, autograd over a retained forward
+    graph); at BWD_DEVICE_ROWS also their device times. Returns the records of the
+    training shapes (B=8, bf16, T=184 and T=328)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    main = None
+    recs = []
     for i, (b, t, hd, dt, tail, lead, unseen, causal) in enumerate(BWD_CASES):
         h = 4
         q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=300 + i)
@@ -394,10 +410,18 @@ def check_flash_backward(fa):
         if causal:
             ok = ok & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
         bias = torch.where(ok, 0.0, -1e9).to(dt)
+        # SDPA's backward alone: autograd over one retained forward graph
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-        fwd_ms = time_ms(lambda: sdpa(*leaves, attn_mask=bias), iters=50)
-        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa(*leaves, attn_mask=bias), leaves, do),
-                         iters=50) - fwd_ms
+        lib_out = sdpa(*leaves, attn_mask=bias)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+        lib_ms = time_ms(lib_bwd, iters=50)
+        dev = {}
+        if i in BWD_DEVICE_ROWS:
+            dev["dq"], _ = device_ms(lambda: fa.flash_attention_dq(*args))
+            dev["dkdv"], _ = device_ms(lambda: fa.flash_attention_dkdv(*args))
+            dev["library"], _ = device_ms(lib_bwd)
         elt, n, bht = q.element_size(), b * h * t * hd, b * h * t
         frac = 0.5 if causal else 1.0
         peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
@@ -412,16 +436,20 @@ def check_flash_backward(fa):
                "masked_tail": tail, "masked_lead": lead, "row_without_keys": unseen,
                "causal": causal, "max_abs_err": errs, "tol": tol,
                "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "library_fwd_ms": fwd_ms,
+               "library_ms": lib_ms,
+               "dq_device_ms": dev.get("dq"), "dkdv_device_ms": dev.get("dkdv"),
+               "library_device_ms": dev.get("library"),
+               "device_ratio": ratio(dev["dq"] + dev["dkdv"], dev["library"])
+               if dev.get("dq") and dev.get("dkdv") else None,
                "bound_ms": {k_: v_[2] for k_, v_ in bounds.items()},
                "bound_by": {k_: "bytes" if v_[0] / HBM_BYTES_PER_S >= v_[1] / peak
                             else "operations" for k_, v_ in bounds.items()},
                "bytes": {k_: v_[0] for k_, v_ in bounds.items()},
                "flops": {k_: v_[1] for k_, v_ in bounds.items()}}
         print("flash_attention_backward " + json.dumps(rec), flush=True)
-        if i == 0:
-            main = rec
-    return main
+        if i in BWD_DEVICE_ROWS:
+            recs.append(rec)
+    return recs
 
 
 def update_inputs(b, cache_dtype, q_dtype, seed):
@@ -501,6 +529,7 @@ def check_decode_attention_update(da):
                 cv[layer, rows, :, inpos] = vn
                 return sdpa(q4, ck[layer], cv[layer], attn_mask=m4)
             lib_ms = time_ms(lib_call)
+            lib_dev, _ = device_ms(lib_call)
         dev, _ = device_ms(lambda: da.decode_attention_update_layer(q, kn, vn, ck, cv, bias, pos,
                                                                     next(lidx) % L))
         qe = q.element_size()
@@ -511,6 +540,8 @@ def check_decode_attention_update(da):
                "q": str(qdt).replace("torch.", ""), "max_abs_err": worst, "tol": TOL,
                "max_abs_err_vs_write_then_k1": worst_k1,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev,
+               "library_device_ms": lib_dev if lib_ms else None,
+               "device_ratio": ratio(dev, lib_dev) if lib_ms else None,
                "library_call": "index_put_ of k and v + scaled_dot_product_attention",
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
                "bound_by": "bytes", "bytes": n_bytes}
@@ -518,6 +549,82 @@ def check_decode_attention_update(da):
         if i == 0:
             main = rec
     return main
+
+
+# C.1: e4m3 at overflow, as the JAX package writes (astype) and reads
+# (_f8e4m3_bits_to_bf16) it: values, the bits stored, the values read back
+OVERFLOW = [1e4, 460.0, 500.0, -1e4, 464.0, 447.0]
+OVERFLOW_BITS = [0x7F, 0x7E, 0x7F, 0xFF, 0x7E, 0x7E]
+OVERFLOW_READ = [480.0, 448.0, 480.0, -480.0, 448.0, 448.0]
+
+
+def check_fp8_overflow(da):
+    """K/V rows holding OVERFLOW (K) and its negation (V) through K3 into an
+    e4m3 cache at the pool's shape (8 slots), then K1 over that cache: K3's
+    caches equal the plain version's to the bit and hold OVERFLOW_BITS; the
+    lockstep write (``to_cache`` on the card) stores the same bits; K1's and
+    K3's outputs are finite and within TOL of the plain versions, which read
+    0x7F / 0xFF as +-480 (the row whose only valid key is the new one
+    returns exactly -OVERFLOW_READ)."""
+    L = FLAGSHIP["L"]
+    q, kn, vn, ck, cv, bias, pos = update_inputs(8, torch.float8_e4m3fn, torch.bfloat16,
+                                                 seed=250)
+    over = torch.tensor(OVERFLOW, device="cuda")
+    kn[:, :, :6], vn[:, :, :6] = over, -over
+    want_bits = torch.tensor(OVERFLOW_BITS, dtype=torch.uint8, device="cuda")
+    if not torch.equal(_bits(da.to_cache(kn, ck.dtype))[:, :, :6],
+                       want_bits.expand(8, FLAGSHIP["H"], 6)):
+        raise AssertionError("fp8 overflow: the lockstep write's bits differ from jnp.astype's")
+    worst = 0.0
+    for layer in (0, L - 1):
+        pk, pv = ck.clone(), cv.clone()
+        got3 = da.decode_attention_update_layer(q, kn, vn, ck, cv, bias, pos, layer).float()
+        want3 = da.decode_attention_update_layer_plain(q, kn, vn, pk, pv, bias, pos,
+                                                       layer).float()
+        torch.cuda.synchronize()
+        if not (torch.equal(_bits(ck), _bits(pk)) and torch.equal(_bits(cv), _bits(pv))):
+            raise AssertionError(f"fp8 overflow, layer {layer}: K3's caches differ from the "
+                                 "plain version's")
+        if not torch.equal(_bits(ck[layer, 0, :, 0, :6]), want_bits.expand(FLAGSHIP["H"], 6)):
+            raise AssertionError(f"fp8 overflow, layer {layer}: K3 stored "
+                                 f"{_bits(ck[layer, 0, 0, 0, :6]).tolist()}")
+        got1 = da.decode_attention_layer(q.contiguous(), ck, cv, bias, layer).float()
+        want1 = da.decode_attention_layer_plain(q, ck, cv, bias, layer).float()
+        torch.cuda.synchronize()
+        for name, got, want in (("K3", got3, want3), ("K1", got1, want1)):
+            err = (got - want).abs()
+            worst = max(worst, float(err.max()))
+            if not (bool(torch.isfinite(got).all())
+                    and bool((err <= TOL + TOL * want.abs()).all())):
+                raise AssertionError(f"fp8 overflow, layer {layer}: {name} max |err| "
+                                     f"{float(err.max())}, finite {bool(torch.isfinite(got).all())}")
+        if want3[0, :, :6].tolist() != [[-x for x in OVERFLOW_READ]] * FLAGSHIP["H"]:
+            raise AssertionError(f"fp8 overflow: 0x7F / 0xFF read as {want3[0, 0, :6].tolist()}")
+    print("fp8 overflow " + json.dumps({
+        "values": OVERFLOW, "bits": OVERFLOW_BITS, "read_as": OVERFLOW_READ,
+        "k3_caches_bit_equal_plain": True, "max_abs_err_k1_k3": worst, "tol": TOL}), flush=True)
+
+
+def ptxas_summary(log):
+    """Registers, spill bytes and static shared memory of each kernel
+    function in one ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[name]["static_smem"] = int(m[1])
+    return out
 
 
 def small_config(pipeline):
@@ -935,14 +1042,20 @@ def main() -> int:
     kernels = ["decode_attention", "flash_attention", "flash_attention_bwd"]
     logs = _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
+    for name, funcs in ptxas.items():
+        for func, info in funcs.items():
+            print(f"  ptxas {name}: {func} {json.dumps(info)}")
+    # dynamic shared memory per block at the training shapes (B=8, H=4, hd=256)
+    bwd_build = {"functions": ptxas["flash_attention_bwd"], "dynamic_smem_bytes": {
+        f"{part}_{dt}_T{t}": fa.bwd_smem_bytes(8, 4, t, 256, part == "dkdv", dt == "bf16")
+        for part in ("dq", "dkdv") for dt in ("bf16", "f32") for t in (184, 328)}}
+    print("flash_attention_bwd build " + json.dumps(bwd_build), flush=True)
     k1 = check_decode_attention(da)
     k3 = check_decode_attention_update(da)
+    check_fp8_overflow(da)
     k4, k4_train = check_flash_attention(fa)
-    k56 = check_flash_backward(fa)
+    k56, k56_328 = check_flash_backward(fa)
 
     # ---- phase 2: a small f32 configuration, card vs CPU
     src = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 16000)
@@ -1075,7 +1188,8 @@ def main() -> int:
         "launches_by_path": launches("decode_attention_update_layer"),
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": "bytes",
-        "library_ms": k3["library_ms"]}, {
+        "library_ms": k3["library_ms"], "device_ms": k3["device_ms"],
+        "library_device_ms": k3["library_device_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "design": "bf16 mma.sync tiles, cp.async double buffer",
         "source": "genvc_tpu_torch/csrc/flash_attention.cu",
@@ -1090,17 +1204,34 @@ def main() -> int:
             "bound_ms")}}] + [{
         # K5 / K6: plain_ms and library_ms (SDPA's backward) are of the whole
         # backward, dq, dk and dv together; ms and bound_ms of the kernel alone
-        "name": name, "route": "cuda", "design": "f32 FMA from shared memory",
+        "name": name, "route": "cuda", "design": design,
         "source": "genvc_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": replaces,
         "launches": sum(launches(name).values()), "launches_by_path": launches(name),
         "max_abs_err": max(k56["max_abs_err"][g] for g in grads),
         "ms": k56[f"{part}_ms"], "plain_ms": k56["plain_ms"],
         "bound_ms": k56["bound_ms"][part], "bound_by": k56["bound_by"][part],
-        "library_ms": k56["library_ms"]} for name, replaces, part, grads in (
-            ("flash_attention_dq", "genvc_tpu/ops/flash_attention.py:187", "dq", ("dq",)),
+        "library_ms": k56["library_ms"], "device_ms": k56[f"{part}_device_ms"],
+        "library_device_ms": k56["library_device_ms"],
+        "pair_device_ratio": k56["device_ratio"],
+        "T328": {key: k56_328[key] for key in (
+            f"{part}_ms", f"{part}_device_ms", "library_ms", "library_device_ms",
+            "device_ratio")} | {"bound_ms": k56_328["bound_ms"][part]},
+        "ptxas": {f: info for f, info in bwd_build["functions"].items() if tag in f},
+        "dynamic_smem_bytes": {t: bwd_build["dynamic_smem_bytes"][f"{part}_bf16_T{t}"]
+                               for t in (184, 328)}}
+        for name, replaces, part, grads, tag, design in (
+            ("flash_attention_dq", "genvc_tpu/ops/flash_attention.py:187", "dq", ("dq",),
+             "dq_mma", "bf16 mma.sync: 8 warps per 32-row query tile (longest walks "
+             "first), S and dP for a 16-row group x 16-key slice of every 64-key K/V "
+             "tile (cp.async double buffer), dS through shared memory as bf16, each "
+             "warp then 64 columns of its group's dQ over all keys; f32 SIMT"),
             ("flash_attention_dkdv", "genvc_tpu/ops/flash_attention.py:197", "dkdv",
-             ("dk", "dv")))]}), flush=True)
+             ("dk", "dv"), "dkdv_mma", "bf16 mma.sync, transposed: 8 warps per 64-key "
+             "tile (32 when 64-key tiles leave SMs idle) walking 64-row Q/dO tiles "
+             "(cp.async double buffer); S^T, dP^T split over warps by queries, P^T and "
+             "dS^T through shared memory, dK and dV split by columns; f32 SIMT"))]}),
+          flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

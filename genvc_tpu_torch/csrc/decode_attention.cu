@@ -11,7 +11,10 @@
 // (L, B, H, T, hd):   out = softmax(q . K^T / sqrt(hd) + bias) . V
 //   * q is rounded to bf16; K and V are read at their storage type (bf16 or
 //     e4m3) and widened in registers (e4m3 through the hardware cvt of
-//     __nv_cvt_fp8x2_to_halfraw2 — exact, e4m3 fits in half);
+//     __nv_cvt_fp8x2_to_halfraw2 — exact, e4m3 fits in half — except the
+//     codes 0x7F / 0xFF, which read as +480 / -480: the value the JAX
+//     package's kernels give them through their bit-field upcast
+//     `_f8e4m3_bits_to_bf16`, where the hardware gives NaN);
 //   * logits accumulate in f32, are scaled by 1/sqrt(hd), then the bias is
 //     added; the softmax runs in f32;
 //   * probabilities are normalised by the row's global max and sum, then
@@ -48,8 +51,8 @@
 // Update variant (decode_attention_update_layer, K3): one block of 256
 // threads per (row, head), the whole row's probabilities in shared memory.
 // Block (b, h) rounds the new K and V rows to the cache type (bf16
-// round-to-nearest-even, or e4m3 with the rounding and overflow rule of
-// torch's float8_e4m3fn conversion), stores them once at row pos[b] of its
+// round-to-nearest-even, or e4m3 as jnp.astype(float8_e4m3fn) rounds: to
+// the nearest even, a magnitude past 464 stored as 0x7F / 0xFF), stores them once at row pos[b] of its
 // own (T, hd) block (dropped when pos[b] is outside [0, T): an idle pool slot
 // runs past the cache end), and keeps their widened values in shared memory.
 // The attention never reads row pos[b] back from global memory (the __ldg
@@ -84,16 +87,16 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// torch's float -> float8_e4m3fn conversion (round to nearest even; an
-// overflow saturates to 448 or becomes NaN, as `satfinite` says: torch
-// versions differ, the wrapper passes its own torch's rule). Returns the bits.
-__device__ __forceinline__ uint8_t e4m3_bits(float f, int satfinite) {
+// float -> float8_e4m3fn bits as jnp.astype rounds (and ops/decode_attention.py
+// to_e4m3): to the nearest even; a magnitude that rounds past 448 (> 464)
+// becomes 0x7F, with the sign 0xFF. No saturation.
+__device__ __forceinline__ uint8_t e4m3_bits(float f) {
   uint32_t bits = __float_as_uint(f);
   const uint32_t sign = bits & 0x80000000u;
   bits ^= sign;
   uint32_t r;
   if (bits >= (1087u << 20)) {              // |f| >= 480, inf or NaN
-    r = (bits > 0x7F800000u || !satfinite) ? 0x7Fu : 0x7Eu;
+    r = 0x7Fu;
   } else if (bits < (121u << 23)) {         // below 2^-6: subnormal
     const float denorm = __uint_as_float(141u << 23);
     r = __float_as_uint(__fadd_rn(__uint_as_float(bits), denorm)) - (141u << 23);
@@ -101,25 +104,30 @@ __device__ __forceinline__ uint8_t e4m3_bits(float f, int satfinite) {
     const uint32_t odd = (bits >> 20) & 1u;
     bits += ((uint32_t)(7 - 127) << 23) + 0x7FFFFu;
     bits += odd;
-    r = (bits >> 20) & 0xFFu;
-    if (r == 0x7Fu && satfinite) r = 0x7Eu;
+    r = (bits >> 20) & 0xFFu;                // 0x7F for 464 < |f| < 480
   }
   return (uint8_t)(r | (sign >> 24));
+}
+
+// 0x7F / 0xFF read as +480 / -480 (the hardware cvt gives NaN for them)
+__device__ __forceinline__ float e4m3_fix(uint32_t code, float widened) {
+  return (code & 0x7Fu) == 0x7Fu ? ((code & 0x80u) ? -480.f : 480.f) : widened;
 }
 
 // round a value to the cache type; returns the stored element and, through
 // `widened`, its value as the loaders below widen it
 __device__ __forceinline__ __nv_bfloat16 to_cache(float x, __nv_bfloat16*,
-                                                  int, float* widened) {
+                                                  float* widened) {
   const __nv_bfloat16 r = __float2bfloat16(x);
   *widened = __bfloat162float(r);
   return r;
 }
 __device__ __forceinline__ __nv_fp8_e4m3 to_cache(float x, __nv_fp8_e4m3*,
-                                                  int satfinite, float* widened) {
+                                                  float* widened) {
   __nv_fp8_e4m3 r;
-  r.__x = e4m3_bits(x, satfinite);
-  *widened = __half2float(__half(__nv_cvt_fp8_to_halfraw(r.__x, __NV_E4M3)));
+  r.__x = e4m3_bits(x);
+  *widened = e4m3_fix(r.__x,
+                      __half2float(__half(__nv_cvt_fp8_to_halfraw(r.__x, __NV_E4M3))));
   return r;
 }
 
@@ -135,7 +143,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// 8 e4m3 cache values (one 8-byte load) -> f32 via the native fp8x2 convert
+// 8 e4m3 cache values (one 8-byte load) -> f32 via the native fp8x2 convert,
+// with 0x7F / 0xFF patched to +-480 (e4m3_fix)
 __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
   const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_fp8x2_storage_t* pairs =
@@ -144,8 +153,8 @@ __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
   for (int i = 0; i < 4; ++i) {
     const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(pairs[i], __NV_E4M3);
     const float2 f = __half22float2(__half2(hr));
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    out[2 * i] = e4m3_fix(pairs[i] & 0xFFu, f.x);
+    out[2 * i + 1] = e4m3_fix(pairs[i] >> 8, f.y);
   }
 }
 
@@ -188,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_attn_update_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
                    const QT* __restrict__ v_new, CT* __restrict__ cache_k,
                    CT* __restrict__ cache_v, const float* __restrict__ bias,
-                   const void* __restrict__ pos, int pos_i64, int satfinite,
+                   const void* __restrict__ pos, int pos_i64,
                    QT* __restrict__ out, int H, int T, int hd, float scale,
                    long long layer_offset, long long qkv_stride) {
   extern __shared__ float smem[];
@@ -219,8 +228,8 @@ decode_attn_update_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new
 
   for (int d = tid; d < hd; d += kThreads) {
     q_s[d] = bf16_round(to_float(q[qrow + d]));
-    const CT kc = to_cache(to_float(k_new[qrow + d]), (CT*)nullptr, satfinite, &kn_s[d]);
-    const CT vc = to_cache(to_float(v_new[qrow + d]), (CT*)nullptr, satfinite, &vn_s[d]);
+    const CT kc = to_cache(to_float(k_new[qrow + d]), (CT*)nullptr, &kn_s[d]);
+    const CT vc = to_cache(to_float(v_new[qrow + d]), (CT*)nullptr, &vn_s[d]);
     if (row_pos >= 0) {
       cache_k[base + row_pos * hd + d] = kc;
       cache_v[base + row_pos * hd + d] = vc;
@@ -525,7 +534,7 @@ cudaError_t launch_split(const void* q, const void* ck, const void* cv, const vo
 template <typename QT, typename CT>
 cudaError_t launch_update(const void* q, const void* k_new, const void* v_new, void* ck,
                           void* cv, const void* bias, const void* pos, int pos_i64,
-                          int satfinite, void* out, int B, int H, int T, int hd,
+                          void* out, int B, int H, int T, int hd,
                           long long layer_offset, long long qkv_stride,
                           cudaStream_t stream) {
   const size_t smem = smem_bytes(T, hd);
@@ -538,7 +547,7 @@ cudaError_t launch_update(const void* q, const void* k_new, const void* v_new, v
   kernel<<<B * H, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const QT*>(k_new),
       static_cast<const QT*>(v_new), static_cast<CT*>(ck), static_cast<CT*>(cv),
-      static_cast<const float*>(bias), pos, pos_i64, satfinite, static_cast<QT*>(out),
+      static_cast<const float*>(bias), pos, pos_i64, static_cast<QT*>(out),
       H, T, hd, 1.0f / sqrtf((float)hd), layer_offset, qkv_stride);
   return cudaGetLastError();
 }
@@ -587,21 +596,21 @@ extern "C" size_t genvc_decode_attention_scratch_bytes(int B, int H, int T, int 
 // decode_attention_update_layer: write k_new / v_new (q's type) at row
 // pos[b] (int32, or int64 when pos_i64) of layer `layer`, in place (rows
 // with pos[b] outside [0, T) are not written), then attend with q as above.
-// q, k_new, v_new have rows qkv_stride elements apart, heads hd apart.
-// satfinite: an e4m3 overflow saturates (1) or becomes NaN (0). The bias
-// marks pos[b] valid. One launch, no scratch.
+// q, k_new, v_new have rows qkv_stride elements apart, heads hd apart. An
+// e4m3 cache stores e4m3_bits (an overflow as 0x7F / 0xFF). The bias marks
+// pos[b] valid. One launch, no scratch.
 extern "C" int genvc_decode_attention_update_layer(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
     void* cache_v, const void* bias, const void* pos, void* out, int L, int B,
     int H, int T, int hd, int layer, long long qkv_stride, int q_bf16,
-    int cache_fp8, int pos_i64, int satfinite, void* stream) {
+    int cache_fp8, int pos_i64, void* stream) {
   if (!valid_shape(L, B, H, T, hd, layer) || qkv_stride < (long long)H * hd)
     return (int)cudaErrorInvalidValue;
   const long long offset = (long long)layer * B * H * T * hd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_types(q_bf16, cache_fp8, [&](auto qt, auto ct) {
     return launch_update<decltype(qt), decltype(ct)>(q, k_new, v_new, cache_k, cache_v,
-                                                     bias, pos, pos_i64, satfinite, out,
+                                                     bias, pos, pos_i64, out,
                                                      B, H, T, hd, offset, qkv_stride, s);
   });
 }

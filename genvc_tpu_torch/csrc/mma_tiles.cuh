@@ -1,7 +1,7 @@
 // Tensor-core tile helpers for Hopper (sm_90a): bf16 mma.sync with f32
 // accumulators, ldmatrix, 16-byte cp.async, and the quad reductions over an
-// accumulator fragment. Used by the flash-attention forward
-// (flash_attention.cu); written for the backward kernels to share.
+// accumulator fragment. Shared by the flash-attention forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -59,6 +59,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// 4 bytes global -> shared, asynchronously (through L1); src_bytes = 0
+// writes a zero and reads nothing. Both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -73,6 +80,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// what pack_bf16x2(lo, hi) = `packed` left out, itself rounded to bf16: a
+// product of both packs carries the pair to about 2^-17 relative
+__device__ __forceinline__ uint32_t pack_bf16x2_rest(float lo, float hi, uint32_t packed) {
+  const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16x2(lo - r.x, hi - r.y);
 }
 
 // max / sum over the four threads (t = 0..3) that hold one accumulator row

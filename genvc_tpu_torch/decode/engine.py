@@ -27,7 +27,9 @@ version on CPU tensors): ``decode_attention_layer`` after the lockstep
 cache write, ``decode_attention_update_layer`` (which writes each row's K/V
 itself) per row. An f32 cache takes the plain ``nn.attention`` path, because
 the kernels compute in bf16 and would change f32 decode numerics — the same
-gate the JAX engine applies; a numerics choice, not a fallback.
+gate the JAX engine applies; a numerics choice, not a fallback. Every
+write to an fp8 cache goes through ``da.to_cache`` (the JAX package's e4m3
+rounding, overflow stored as 0x7F / 0xFF).
 """
 
 from __future__ import annotations
@@ -120,8 +122,8 @@ def _attend_cached(block: gpt_model.Block, h, state: DecodeState, layer_idx: int
             da.write_rows(state.cache_v[layer_idx], v, state.cur_index)
         else:
             ci = state.cur_index
-            state.cache_k[layer_idx, :, :, ci] = k.to(state.cache_k.dtype)
-            state.cache_v[layer_idx, :, :, ci] = v.to(state.cache_v.dtype)
+            state.cache_k[layer_idx, :, :, ci] = da.to_cache(k, state.cache_k.dtype)
+            state.cache_v[layer_idx, :, :, ci] = da.to_cache(v, state.cache_v.dtype)
         if fused:
             out = da.decode_attention_layer(q, state.cache_k, state.cache_v, bias2,
                                             layer_idx)
@@ -216,8 +218,8 @@ def prefill_logits(model: gpt_model.GPT, state: DecodeState, prefix_emb,
         qh, kh, vh = (tnn.split_heads(t, heads) for t in (q, k, v))
         a = tnn.merge_heads(tnn.attention(qh, kh, vh, bias=bias))
         h = block.mlp_forward(h + block.attn.c_proj(a))
-        state.cache_k[i, :, :, : p + 1] = kh.to(state.cache_k.dtype)
-        state.cache_v[i, :, :, : p + 1] = vh.to(state.cache_v.dtype)
+        state.cache_k[i, :, :, : p + 1] = da.to_cache(kh, state.cache_k.dtype)
+        state.cache_v[i, :, :, : p + 1] = da.to_cache(vh, state.cache_v.dtype)
     state.key_valid[:, : p + 1] = seq_valid
     if state.per_row:
         state.cur_index = torch.full_like(state.cur_index, p + 1)
@@ -297,8 +299,8 @@ def insert_rows(pool: DecodeState, rows: DecodeState, slots) -> None:
     state, in place. Only those slots' cache, positions and sampling state
     change; the pool keeps its generator and step count."""
     idx = torch.as_tensor(list(slots), dtype=torch.long, device=pool.last_token.device)
-    pool.cache_k[:, idx] = rows.cache_k.to(pool.cache_k.dtype)
-    pool.cache_v[:, idx] = rows.cache_v.to(pool.cache_v.dtype)
+    pool.cache_k[:, idx] = da.to_cache(rows.cache_k, pool.cache_k.dtype)
+    pool.cache_v[:, idx] = da.to_cache(rows.cache_v, pool.cache_v.dtype)
     for name in ("key_valid", "cur_index", "n_generated", "last_token", "seen",
                  "finished"):
         getattr(pool, name)[idx] = getattr(rows, name)

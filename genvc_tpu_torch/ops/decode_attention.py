@@ -20,6 +20,14 @@ Numerics (those of the Pallas body): q rounded to bf16, K/V widened from
 their storage type, logits in f32 scaled by 1/sqrt(hd) then biased, softmax
 in f32, probabilities rounded to bf16 before P.V, which accumulates in f32.
 
+The e4m3 cache follows the JAX package's kernel path, not the running
+torch's conversion (:func:`to_e4m3`, :func:`from_e4m3`): a write rounds to
+the nearest even e4m3 value and stores a magnitude that rounds past 448
+(|x| > 464; 464 is a tie and rounds to 448) as 0x7F / 0xFF, as
+``jnp.astype(float8_e4m3fn)`` does; a read takes those two codes as +480 /
+-480, as the Pallas kernels' bit-field upcast ``_f8e4m3_bits_to_bf16`` does.
+Every other code reads as its e4m3 value.
+
 Bound on the card: bytes. A call must read one layer of K and V,
 ``2 * B * H * T * hd * sizeof(cache)`` bytes — 1.57 MB at the streaming shape
 (B=1, H=4, T=384, hd=256, bf16), 0.47 us at 3.35 TB/s — for 4*B*H*T*hd flops.
@@ -49,12 +57,46 @@ MIN_SPLIT_KEYS = 16  # keys per range of K1's split, at least (but the last)
 SPLIT_BLOCKS_PER_SM = 4  # K1's blocks (4 warps each) per SM the split aims at
 
 
+E4M3_LAST_TO_448 = 464.0  # larger magnitudes round past 448, e4m3's largest finite
+
+
+def to_e4m3(x):
+    """``x`` as float8_e4m3fn with ``jnp.astype``'s bits: round to the nearest
+    even; a magnitude above 464 (and NaN, inf) becomes 0x7F / 0xFF by sign.
+    Torch versions differ there (saturate to 448, or NaN), so the overflow
+    is set here rather than taken from the conversion."""
+    xf = x.float()
+    bits = xf.to(_F8).view(torch.uint8)
+    over = ~(xf.abs() <= E4M3_LAST_TO_448)  # NaN too
+    return torch.where(over, bits | 0x7F, bits).view(_F8)
+
+
+def from_e4m3(x):
+    """An e4m3 tensor widened to bf16 (exact) as the reference's kernels read
+    it: 0x7F / 0xFF, the codes an overflow stores, are +480 / -480."""
+    bits = x.view(torch.uint8)
+    sign = 1 - 2 * (bits >> 7).to(torch.bfloat16)
+    return torch.where((bits & 0x7F) == 0x7F, sign * 480, x.to(torch.bfloat16))
+
+
+def to_cache(x, dtype):
+    """``x`` in a cache's storage type: :func:`to_e4m3` for an e4m3 cache."""
+    if x.dtype == dtype:
+        return x
+    return to_e4m3(x) if dtype == _F8 else x.to(dtype)
+
+
+def widen(cache):
+    """A cache's values in bf16 (the kernels' operand type)."""
+    return from_e4m3(cache) if cache.dtype == _F8 else cache.to(torch.bfloat16)
+
+
 def decode_attention_layer_plain(q, cache_k, cache_v, bias, layer_idx):
     """Plain PyTorch version with the kernel's casts: bf16 q, f32 logits,
     f32 softmax, bf16 probabilities, f32 P.V accumulation, q's dtype out."""
     hd = q.shape[-1]
-    k = cache_k[layer_idx].to(torch.bfloat16).float()    # (B, H, T, hd)
-    v = cache_v[layer_idx].to(torch.bfloat16).float()
+    k = widen(cache_k[layer_idx]).float()    # (B, H, T, hd)
+    v = widen(cache_v[layer_idx]).float()
     qf = q.to(torch.bfloat16).float()
     logits = torch.einsum("bhd,bhtd->bht", qf, k) * (1.0 / math.sqrt(hd))
     logits = logits + bias.float()[:, None, :]
@@ -74,7 +116,7 @@ def write_rows(cache, new, pos):
     are (as JAX drops an out-of-range scatter). No position is read back to
     the host: an out-of-range row rewrites its clamped row unchanged."""
     t = cache.shape[2]
-    new = new.to(cache.dtype)
+    new = to_cache(new, cache.dtype)
     if cache.dtype == _F8:  # index_put and where on the bits
         cache, new = cache.view(torch.uint8), new.view(torch.uint8)
     rows = torch.arange(cache.shape[0], device=cache.device)
@@ -230,8 +272,7 @@ def decode_attention_update_layer(q, k_new, v_new, cache_k, cache_v, bias, pos,
         cache_v.data_ptr(), bias.data_ptr(), pos.data_ptr(), out.data_ptr(),
         n_layers, b, h, t, hd, int(layer_idx), stride,
         int(q.dtype == torch.bfloat16), int(cache_k.dtype == _F8),
-        int(pos.dtype == torch.int64), int(_fp8_saturates()),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(pos.dtype == torch.int64), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_update kernel launch failed: CUDA "
                            f"error {err}")
@@ -240,13 +281,6 @@ def decode_attention_update_layer(q, k_new, v_new, cache_k, cache_v, bias, pos,
 
 
 decode_attention_update_layer.launches = 0
-
-
-@functools.cache
-def _fp8_saturates() -> bool:
-    """Whether this torch's float -> float8_e4m3fn conversion saturates an
-    overflow to 448 (else it gives NaN); the kernel rounds as torch does."""
-    return int(torch.tensor([1e4]).to(_F8).view(torch.uint8)) == 0x7E
 
 
 def decode_attention(q, k_cache, v_cache, bias):
@@ -270,7 +304,7 @@ def _lib():
         scratch.restype = ctypes.c_size_t
         up = lib.genvc_decode_attention_update_layer
         up.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         up.restype = ctypes.c_int
         sm = lib.genvc_decode_attention_update_smem_bytes
         sm.argtypes = [ctypes.c_int, ctypes.c_int]

@@ -28,7 +28,14 @@ Backward numerics (the Pallas dq and dk/dv bodies): the same masked s,
 p = exp(s - LSE) from the saved LSE, dp = dO.v^T, ds = p * (dp - D) with
 D = rowsum(dO * O) computed here in plain torch from the saved O, as the JAX
 package computes it in XLA; dq = (ds.k) * scale, dk = (ds^T.q) * scale,
-dv = p^T.dO, all in f32, cast to q's dtype.
+dv = p^T.dO, all in f32, cast to q's dtype. One deliberate difference on the
+card: the bf16 kernels run every product on the tensor cores, so p and ds
+are rounded to bf16 before the second products (p^T.dO, ds.k, ds^T.q);
+every sum stays f32, and D and the LSE are unchanged. Where a row sees no
+valid key (p = 1 on every key, ds unnormalised), ds goes in as two bf16
+parts, bf16(ds) + bf16(ds - bf16(ds)), for the K5 group (16 rows) or K6
+query tile (64 rows) holding it. The f32 kernels and the plain version
+round nothing.
 
 Bound on the card: bytes, for the forward at the latent pass's shape and for
 the backward at the training step's; see the sources for the tiling.
@@ -322,4 +329,15 @@ def _lib_bwd():
                            + [ctypes.c_float] + [ctypes.c_int] * 2
                            + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+    sm = lib.genvc_flash_attention_bwd_smem_bytes
+    if sm.argtypes is None:
+        sm.argtypes = [ctypes.c_int] * 6
+        sm.restype = ctypes.c_size_t
     return lib
+
+
+def bwd_smem_bytes(b, h, t, hd, dkdv, bf16=True):
+    """Dynamic shared memory of one block of K5 (``dkdv`` False) or K6 at
+    this shape, as the launch picks its tiles."""
+    return int(_lib_bwd().genvc_flash_attention_bwd_smem_bytes(b, h, t, hd, int(dkdv),
+                                                                int(bf16)))

@@ -245,6 +245,68 @@ def test_torch_update_layer_drops_rows_past_the_cache(cache):
                                atol=UPDATE_TOL[cache])
 
 
+# ---- e4m3 at overflow: the JAX package's astype bits, read as its kernels read
+
+OVERFLOW = [1e4, 460.0, 500.0, -1e4, 464.0, 447.0]
+OVERFLOW_BITS = [0x7F, 0x7E, 0x7F, 0xFF, 0x7E, 0x7E]
+OVERFLOW_READ = [480.0, 448.0, 480.0, -480.0, 448.0, 448.0]
+
+
+def test_torch_e4m3_overflow_cache_bits_and_attention_match_jax():
+    """K/V rows holding OVERFLOW, written into an e4m3 cache by the port's
+    lockstep write (``to_cache``, what the engine calls) and per-row update
+    (``decode_attention_update_layer``, its plain version here), and by the
+    JAX package (``astype``; ``decode_attention_update_layer`` in interpret
+    mode): the caches are equal to the bit (0x7F / 0xFF where the value
+    rounds past 448), the port reads those codes as +-480, and its attention
+    over them matches ``decode_attention_layer`` (interpret mode) over the
+    JAX package's cache within the e4m3 tolerance. The interpret-mode
+    update kernel's own ``out`` is not the yardstick: it reads the row it
+    has just rounded in registers, and there gives one of the 0xFF codes
+    (from -500) the value 0, though its cache stores 0xFF."""
+    positions = [5, 37, 0, 63]
+    (jq, jkn, jvn, jck, jcv, jb), (tq, tkn, tvn, tck, tcv, tb) = \
+        _update_inputs("e4m3", "f32", positions, seed=11)
+    over = np.asarray(OVERFLOW, np.float32)
+    jkn, jvn = jkn.at[:, :, :6].set(over), jvn.at[:, :, :6].set(-over)
+    tkn[:, :, :6], tvn[:, :, :6] = torch.from_numpy(over), torch.from_numpy(-over)
+    tol = CACHE["e4m3"][2]
+
+    # per-row update, layer 1
+    _, jck2, jcv2 = jda.decode_attention_update_layer(
+        jq, jkn, jvn, jck, jcv, jb, jnp.asarray(positions, jnp.int32), 1, interpret=True)
+    got = tda.decode_attention_update_layer(tq, tkn, tvn, tck, tcv, tb,
+                                            torch.tensor(positions), 1)
+    np.testing.assert_array_equal(_bits(tck), _jbits(jck2, "e4m3"))
+    np.testing.assert_array_equal(_bits(tcv), _jbits(jcv2, "e4m3"))
+    assert _bits(tck)[1, 0, 0, 5, :6].tolist() == OVERFLOW_BITS
+    want = jda.decode_attention_layer(jq, jck2, jcv2, jb, 1, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(got[2].float().numpy()[:, :6],
+                               np.broadcast_to([-x for x in OVERFLOW_READ], (2, 6)))
+
+    # lockstep write of row 9 of layer 2, then K1's attention over it
+    ci = 9
+    tck[2, :, :, ci] = tda.to_cache(tkn, tck.dtype)
+    tcv[2, :, :, ci] = tda.to_cache(tvn, tcv.dtype)
+    jck3 = jck2.at[2, :, :, ci].set(jkn.astype(jck2.dtype))
+    jcv3 = jcv2.at[2, :, :, ci].set(jvn.astype(jcv2.dtype))
+    np.testing.assert_array_equal(_bits(tck), _jbits(jck3, "e4m3"))
+    np.testing.assert_array_equal(_bits(tcv), _jbits(jcv3, "e4m3"))
+    assert tda.from_e4m3(tck[2, 0, 0, ci, :6]).float().tolist() == OVERFLOW_READ
+    assert tda.from_e4m3(tcv[2, 0, 0, ci, :6]).float().tolist() == [-x for x in OVERFLOW_READ]
+    tb = tb.clone()
+    tb[:, : ci + 1] = 0.0
+    jb = jnp.asarray(tb.numpy())
+    for layer in (1, 2):
+        want = np.asarray(jda.decode_attention_layer(jq, jck3, jcv3, jb, layer,
+                                                     interpret=True), np.float32)
+        got = tda.decode_attention_layer(tq, tck, tcv, tb, layer)
+        assert np.isfinite(got.float().numpy()).all()
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
 def test_torch_update_layer_rejects_what_the_kernel_does_not_take():
     _, (tq, tkn, tvn, tck, tcv, tb) = _update_inputs("bf16", "bf16", [1, 2, 3, 4])
     pos = torch.tensor([1, 2, 3, 4])

@@ -254,6 +254,89 @@ def test_torch_flash_bwd_plain_matches_pallas_backward(t, causal):
     assert np.abs(got[0][unseen, :, :5].numpy()).max() > 0
 
 
+# ---- the bf16 backward kernels' arithmetic (csrc/flash_attention_bwd.cu), in torch
+
+
+DQ_GROUP, DKDV_TILE = 16, 64  # K5's query rows per warp group; K6's per query tile
+
+
+def _bf16_parts(x, rows_split, rows):
+    """``x`` (B, H, T, T) rounded to bf16, but carried as bf16(x) +
+    bf16(x - bf16(x)) in the query rows of the ``rows``-row groups where
+    ``rows_split`` (B, T) holds a True."""
+    hi = x.to(torch.bfloat16).float()
+    b, t = rows_split.shape
+    pad = -t % rows
+    grp = torch.nn.functional.pad(rows_split, (0, pad)).reshape(b, -1, rows).any(-1)
+    grp = grp.repeat_interleave(rows, 1)[:, :t][:, None, :, None]
+    return torch.where(grp, hi + (x - hi).to(torch.bfloat16).float(), hi)
+
+
+def _tile_backward(q, k, v, valid, out, lse, g, scale, causal):
+    """What the bf16 K5 and K6 compute, in f32 torch: s, p = exp(s - LSE),
+    dp and ds = p (dp - D) in f32 from the bf16 inputs; p and ds rounded to
+    bf16 before the second products, except that ds is carried as two bf16
+    parts in a K5 query group (16 rows) or K6 query tile (64 rows) holding a
+    row that sees no valid key. K5: dQ = dS.K (scaled), each element summed
+    over the keys in one order; K6: dV = P^T.dO and dK = dS^T.Q (scaled),
+    summed over the query tiles. Keys and slices the kernels skip past the
+    causal diagonal have p = 0 here, so they add nothing. Returns (dq, dk,
+    dv) in q's dtype."""
+    t = q.shape[2]
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dd = (gf * out.float()).sum(-1, keepdim=True)
+    ok = valid[:, None, None, :]
+    rows = torch.arange(t)
+    if causal:
+        ok = ok & (rows[None, :] <= rows[:, None])
+        unseen = rows[None, :] < valid.int().argmax(1, keepdim=True)
+        unseen = unseen | ~valid.any(1, keepdim=True)
+    else:
+        unseen = ~valid.any(1, keepdim=True).expand(-1, t)
+    s = torch.where(ok, torch.matmul(qf, kf.transpose(-1, -2)) * scale,
+                    torch.full((), -1e9))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd)
+    p16 = p.to(torch.bfloat16).float()
+    ds_q, ds_k = (_bf16_parts(ds, unseen, n) for n in (DQ_GROUP, DKDV_TILE))
+    dq = torch.matmul(ds_q, kf) * scale
+    dk = torch.matmul(ds_k.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p16.transpose(-1, -2), gf)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 136])
+def test_torch_flash_bwd_tile_arithmetic_with_bf16_p_ds_matches_pallas_backward(t, causal):
+    """The bf16 backward kernels' arithmetic (p and ds rounded to bf16 before
+    the second products, ds in two bf16 parts where rows see no valid key)
+    against
+    the Pallas backward in interpret mode, bf16 inputs with ``_bwd_inputs``'
+    masked keys and rows that see no valid key: dq, dk and dv within
+    1e-2 + 1e-2 |w| (BWD_TOL for bf16 in chip_smoke.py: the outputs round to
+    bf16 on both sides, p and ds add 2^-9 of each term)."""
+    from genvc_tpu.ops.flash_attention import _pallas_backward
+
+    arrays = _bwd_inputs(t, causal, seed=20 + t + causal, hd=64)
+    q, k, v, g = (np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+                  for x in arrays[:4])
+    valid = arrays[4]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jq, jk, jv, jg = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, g))
+    jvalid = jnp.asarray(valid)
+    out, lse = _pallas_attention(jq, jk, jv, jvalid, scale, causal, interpret=True)
+    want = _pallas_backward(jq, jk, jv, jvalid, out, lse, jg, scale, causal,
+                            interpret=True)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, g))
+    got = _tile_backward(tq, tk, tv, torch.from_numpy(valid),
+                         torch.from_numpy(np.array(out, np.float32)).to(torch.bfloat16),
+                         torch.from_numpy(np.array(lse)), tg, scale, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), w, atol=1e-2, rtol=1e-2, err_msg=name)
+
+
 def test_torch_flash_attention_gradients_match_autograd_of_plain():
     """``FlashAttention`` (forward K4, backward K5 + K6; their plain versions
     here) against autograd through :func:`flash_attention_plain`, on rows
@@ -286,18 +369,28 @@ def test_torch_flash_bwd_rejects_what_the_kernels_do_not_take():
         tfa.flash_attention_bwd(tq.half(), tk.half(), tv.half(), tvalid, out, lse, out)
 
 
+# (T, causal, masked tail of every batch row): the training step's T = 184,
+# the recipe's 100-token maximum T = 328, a masked tail of every row, and
+# not causal (batch row 1 then sees no valid key)
+CUDA_BWD_CASES = [(184, True, 0), (328, True, 0), (328, True, 45), (136, False, 0)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_BWD_CASES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_torch_cuda_flash_bwd_kernels_match_plain(dt):
+def test_torch_cuda_flash_bwd_kernels_match_plain(dt, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    q, k, v, g, valid = (torch.from_numpy(x).cuda() for x in _bwd_inputs(184, True, 0,
+    t, causal, tail = case
+    q, k, v, g, valid = (torch.from_numpy(x).cuda() for x in _bwd_inputs(t, causal, 0,
                                                                          b=2, h=4, hd=256))
+    if tail:
+        valid[:, t - tail:] = False
     q, k, v, g = (x.to(DT[dt][1]) for x in (q, k, v, g))
-    out, lse = tfa.flash_attention_fwd(q, k, v, valid)
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid, None, causal)
     before = (tfa.flash_attention_dq.launches, tfa.flash_attention_dkdv.launches)
-    got = tfa.flash_attention_bwd(q, k, v, valid, out, lse, g)
-    want = tfa.flash_attention_bwd_plain(q, k, v, valid, out, lse, g)
+    got = tfa.flash_attention_bwd(q, k, v, valid, out, lse, g, None, causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, valid, out, lse, g, None, causal)
     torch.cuda.synchronize()
     assert (tfa.flash_attention_dq.launches, tfa.flash_attention_dkdv.launches) == \
         (before[0] + 1, before[1] + 1)
