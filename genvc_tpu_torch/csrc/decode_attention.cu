@@ -28,10 +28,10 @@
 // hd=256, bf16: 0.47 us at 3.35 TB/s); its arithmetic is 4 * B*H*T*hd flops,
 // far below the tensor-core line.
 //
-// K1 / K2 design: the cache length is split across blocks. The grid is
-// (B*H, S): block s takes keys [s * per, (s + 1) * per), and the wrapper
-// picks per (at least 16) so that B*H*S is about four blocks per SM (S = 1
-// once B*H reaches that).
+// Design (K1 / K2, and K3 after its row write): the cache length is split
+// across blocks. The grid is (B*H, S): block s takes keys [s * per, (s + 1)
+// * per), and the wrapper picks per (at least 16) so that B*H*S is about
+// four blocks per SM (S = 1 once B*H reaches that).
 // The reference normalises by the global max and sum BEFORE rounding the
 // probabilities to bf16, so the split runs in two launches on one stream
 // (the wrapper counts one call):
@@ -45,21 +45,23 @@
 // Each block reads its keys once with 16-byte (bf16) or 8-byte (e4m3) vector
 // loads: one warp per key row for q.K, four rows in flight per warp, 8-wide
 // column chunks times key-row groups for P.V. The split exists for the
-// bytes in flight: one block per (row, head) read 393 KB alone at B = 1. The scratch (logits, S (m, l) pairs, S partial rows,
-// tickets: B*H*(T + S*(hd + 2) + 1) words) is allocated by the wrapper.
+// bytes in flight: one block per (row, head) would read 393 KB alone at
+// B = 1. The scratch (logits, S (m, l) pairs, S partial rows, tickets:
+// B*H*(T + S*(hd + 2) + 1) words) is allocated by the wrapper.
 //
-// Update variant (decode_attention_update_layer, K3): one block of 256
-// threads per (row, head), the whole row's probabilities in shared memory.
-// Block (b, h) rounds the new K and V rows to the cache type (bf16
-// round-to-nearest-even, or e4m3 as jnp.astype(float8_e4m3fn) rounds: to
-// the nearest even, a magnitude past 464 stored as 0x7F / 0xFF), stores them once at row pos[b] of its
-// own (T, hd) block (dropped when pos[b] is outside [0, T): an idle pool slot
-// runs past the cache end), and keeps their widened values in shared memory.
-// The attention never reads row pos[b] back from global memory (the __ldg
-// path is not coherent with a store of the same kernel): at t == pos[b] it
-// takes the shared copy, i.e. the value as stored. The attention is the same
-// arithmetic as K1's, summed in another order, so the result equals the
-// cache write followed by decode_attention_layer up to f32 rounding.
+// K3 (decode_attention_update_layer) is the same two launches with the row
+// write folded into (a): the block (bh, s) whose range holds pos[b] rounds
+// the new K and V rows to the cache type (bf16 round-to-nearest-even, or
+// e4m3 as jnp.astype(float8_e4m3fn) rounds: to the nearest even, a
+// magnitude past 464 stored as 0x7F / 0xFF) and stores them at row pos[b]
+// of its own (T, hd) block; a pos[b] outside [0, T) lies in no range, so
+// nothing is written (an idle pool slot runs past the cache end). For the
+// logit at t == pos[b] that block takes the rounded K row it holds in
+// shared memory, widened as a read widens it: no launch reads back a row
+// that it wrote (the __ldg path is not coherent with a store of the same
+// kernel). (b) reads V at row pos[b] as stored, since (a) ran before it on
+// the same stream. The result equals the cache write followed by K1, bit
+// for bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,8 +72,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;        // cache elements per vector load
 constexpr int kMaxHd = 256;
 
@@ -158,153 +158,6 @@ __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
   }
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) r += red[w];
-  __syncthreads();
-  return r;
-}
-
-// K3's shared memory: q (hd) | probabilities (T) | reduction scratch
-// (kWarps) | per-group P.V partial sums (groups * hd, at most kThreads *
-// kVec) | the new K and V rows as stored (2 * hd).
-size_t smem_bytes(int T, int hd) {
-  return sizeof(float) * (size_t(hd) + size_t(T) + kWarps + size_t(kThreads) * kVec +
-                          2 * size_t(hd));
-}
-
-// q, k_new, v_new: row b, head h at b * qkv_stride + h * hd (strided views
-// of the fused projection).
-template <typename QT, typename CT>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_update_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
-                   const QT* __restrict__ v_new, CT* __restrict__ cache_k,
-                   CT* __restrict__ cache_v, const float* __restrict__ bias,
-                   const void* __restrict__ pos, int pos_i64,
-                   QT* __restrict__ out, int H, int T, int hd, float scale,
-                   long long layer_offset, long long qkv_stride) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* p_s = q_s + hd;
-  float* red = p_s + T;
-  float* acc = red + kWarps;
-  float* kn_s = acc + kThreads * kVec;  // the new rows as stored
-  float* vn_s = kn_s + hd;
-
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int chunks = hd / kVec;  // 8-wide column chunks, <= 32
-  const long long base = layer_offset + (long long)bh * T * hd;
-  const CT* K = cache_k + base;
-  const CT* V = cache_v + base;
-  const float* brow = bias + (long long)b * T;
-  const long long qrow = (long long)b * qkv_stride + (long long)h * hd;
-
-  // the row this block writes; -1 (no write, no substitution) past the cache
-  long long row_pos = pos_i64 ? static_cast<const long long*>(pos)[b]
-                              : (long long)static_cast<const int*>(pos)[b];
-  if (row_pos < 0 || row_pos >= T) row_pos = -1;
-
-  for (int d = tid; d < hd; d += kThreads) {
-    q_s[d] = bf16_round(to_float(q[qrow + d]));
-    const CT kc = to_cache(to_float(k_new[qrow + d]), (CT*)nullptr, &kn_s[d]);
-    const CT vc = to_cache(to_float(v_new[qrow + d]), (CT*)nullptr, &vn_s[d]);
-    if (row_pos >= 0) {
-      cache_k[base + row_pos * hd + d] = kc;
-      cache_v[base + row_pos * hd + d] = vc;
-    }
-  }
-  __syncthreads();
-
-  // q . K^T: one warp per key row, lane `lane` owns columns [8*lane, 8*lane+8)
-  float qv[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) qv[i] = lane < chunks ? q_s[lane * kVec + i] : 0.f;
-  for (int t = warp; t < T; t += kWarps) {
-    float s = 0.f;
-    if (lane < chunks) {
-      float kv[kVec];
-      if (t == row_pos) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) kv[i] = kn_s[lane * kVec + i];
-      } else {
-        load8(K + (long long)t * hd + lane * kVec, kv);
-      }
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) s = fmaf(qv[i], kv[i], s);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) p_s[t] = s * scale + brow[t];
-  }
-  __syncthreads();
-
-  // softmax in f32; probabilities rounded to bf16
-  float m = -INFINITY;
-  for (int t = tid; t < T; t += kThreads) m = fmaxf(m, p_s[t]);
-  m = block_max(m, red);
-  float sum = 0.f;
-  for (int t = tid; t < T; t += kThreads) {
-    const float e = expf(p_s[t] - m);
-    p_s[t] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);
-  for (int t = tid; t < T; t += kThreads) p_s[t] = bf16_round(p_s[t] / sum);
-  __syncthreads();
-
-  // P . V: thread (g, c) sums key rows g, g + groups, ... of column chunk c
-  const int groups = kThreads / chunks;
-  const int c = tid % chunks;
-  const int g = tid / chunks;
-  if (g < groups) {
-    float o[kVec];
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) o[i] = 0.f;
-    for (int t = g; t < T; t += groups) {
-      const float p = p_s[t];
-      float vv[kVec];
-      if (t == row_pos) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) vv[i] = vn_s[c * kVec + i];
-      } else {
-        load8(V + (long long)t * hd + c * kVec, vv);
-      }
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) o[i] = fmaf(p, vv[i], o[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[g * hd + c * kVec + i] = o[i];
-  }
-  __syncthreads();
-  for (int d = tid; d < hd; d += kThreads) {
-    float r = 0.f;
-    for (int gg = 0; gg < groups; ++gg) r += acc[gg * hd + d];
-    store(out + (long long)bh * hd + d, r);
-  }
-}
-
 // ---- K1 / K2: the cache length split across blocks (see the note at the top)
 
 constexpr int kSplitThreads = 128;
@@ -335,32 +188,69 @@ SplitScratch carve(void* scratch, long long bh, int T, int hd, int S) {
   return r;
 }
 
-// (a) logits of keys [s * per, (s + 1) * per) and their local (max, sum)
+// K3's row write, folded into (a): k_new / v_new (q's type; row b, head h at
+// b * q_stride + h * hd) stored at row pos[b] (int32, or int64 when pos_i64)
 template <typename QT, typename CT>
+struct RowWrite {
+  const QT* k_new;
+  const QT* v_new;
+  CT* cache_k;
+  CT* cache_v;
+  const void* pos;
+  int pos_i64;
+};
+
+// (a) logits of keys [s * per, (s + 1) * per) and their local (max, sum);
+// with kWrite (K3), the block whose range holds pos[b] first stores the
+// row's new K and V, and takes its K row from shared memory
+template <typename QT, typename CT, bool kWrite>
 __global__ void __launch_bounds__(kSplitThreads)
 decode_split_logits(const QT* __restrict__ q, const CT* __restrict__ cache_k,
-                    const float* __restrict__ bias, SplitScratch scr, int H, int T,
-                    int hd, int per, float scale, long long layer_offset) {
+                    const float* __restrict__ bias, SplitScratch scr,
+                    RowWrite<QT, CT> w, int H, int T, int hd, int per, float scale,
+                    long long layer_offset, long long q_stride) {
   __shared__ float q_s[kMaxHd];
+  __shared__ float kn_s[kWrite ? kMaxHd : 1];  // the new K row as stored, widened
   __shared__ float m_w[kSplitWarps];
   __shared__ float l_w[kSplitWarps];
   const int bh = blockIdx.x;
   const int s = blockIdx.y;
   const int S = gridDim.y;
   const int b = bh / H;
+  const int h = bh - b * H;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int chunks = hd / kVec;
   const int t0 = s * per;
   const int t1 = min(T, t0 + per);
-  const CT* K = cache_k + layer_offset + (long long)bh * T * hd;
+  const long long base = layer_offset + (long long)bh * T * hd;
+  const CT* K = cache_k + base;
   const float* brow = bias + (long long)b * T;
   float* lrow = scr.logits + (long long)bh * T;
+  const long long qrow = (long long)b * q_stride + (long long)h * hd;
 
+  // the key row this block stores and substitutes (-1: none); a pos[b]
+  // outside [0, T) lies in no range
+  int own = -1;
+  if constexpr (kWrite) {
+    const long long p = w.pos_i64 ? static_cast<const long long*>(w.pos)[b]
+                                  : (long long)static_cast<const int*>(w.pos)[b];
+    if (p >= t0 && p < t1) own = (int)p;
+  }
   if (s == 0 && tid == 0) scr.tickets[bh] = 0;  // for (b)'s ticket
-  for (int d = tid; d < hd; d += kSplitThreads)
-    q_s[d] = bf16_round(to_float(q[(long long)bh * hd + d]));
+  for (int d = tid; d < hd; d += kSplitThreads) {
+    q_s[d] = bf16_round(to_float(q[qrow + d]));
+    if constexpr (kWrite) {
+      if (own >= 0) {
+        float v_widened;
+        w.cache_k[base + (long long)own * hd + d] =
+            to_cache(to_float(w.k_new[qrow + d]), (CT*)nullptr, &kn_s[d]);
+        w.cache_v[base + (long long)own * hd + d] =
+            to_cache(to_float(w.v_new[qrow + d]), (CT*)nullptr, &v_widened);
+      }
+    }
+  }
   __syncthreads();
 
   // q . K^T: one warp per key row, kKeysInFlight rows at a time; lane
@@ -378,7 +268,12 @@ decode_split_logits(const QT* __restrict__ q, const CT* __restrict__ cache_k,
       x[u] = 0.f;
       if (lane < chunks && t + u < t1) {
         float kv[kVec];
-        load8(K + (long long)(t + u) * hd + lane * kVec, kv);
+        if (kWrite && t + u == own) {
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) kv[i] = kn_s[lane * kVec + i];
+        } else {
+          load8(K + (long long)(t + u) * hd + lane * kVec, kv);
+        }
 #pragma unroll
         for (int i = 0; i < kVec; ++i) x[u] = fmaf(qv[i], kv[i], x[u]);
       }
@@ -513,42 +408,30 @@ decode_split_pv(const CT* __restrict__ cache_v, SplitScratch scr, QT* __restrict
   }
 }
 
+// the two launches; `write` (K3) folds the row write into (a)
 template <typename QT, typename CT>
 cudaError_t launch_split(const void* q, const void* ck, const void* cv, const void* bias,
                          void* out, void* scratch, int B, int H, int T, int hd, int per,
-                         long long layer_offset, cudaStream_t stream) {
+                         long long layer_offset, long long q_stride,
+                         const RowWrite<QT, CT>* write, cudaStream_t stream) {
   const int S = (T + per - 1) / per;
   const SplitScratch scr = carve(scratch, (long long)B * H, T, hd, S);
   const dim3 grid(B * H, S);
-  decode_split_logits<QT, CT><<<grid, kSplitThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(ck),
-      static_cast<const float*>(bias), scr, H, T, hd, per, 1.0f / sqrtf((float)hd),
-      layer_offset);
+  const float scale = 1.0f / sqrtf((float)hd);
+  if (write)
+    decode_split_logits<QT, CT, true><<<grid, kSplitThreads, 0, stream>>>(
+        static_cast<const QT*>(q), static_cast<const CT*>(ck),
+        static_cast<const float*>(bias), scr, *write, H, T, hd, per, scale,
+        layer_offset, q_stride);
+  else
+    decode_split_logits<QT, CT, false><<<grid, kSplitThreads, 0, stream>>>(
+        static_cast<const QT*>(q), static_cast<const CT*>(ck),
+        static_cast<const float*>(bias), scr, RowWrite<QT, CT>{}, H, T, hd, per, scale,
+        layer_offset, q_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_split_pv<QT, CT><<<grid, kSplitThreads, 0, stream>>>(
       static_cast<const CT*>(cv), scr, static_cast<QT*>(out), T, hd, per, layer_offset);
-  return cudaGetLastError();
-}
-
-template <typename QT, typename CT>
-cudaError_t launch_update(const void* q, const void* k_new, const void* v_new, void* ck,
-                          void* cv, const void* bias, const void* pos, int pos_i64,
-                          void* out, int B, int H, int T, int hd,
-                          long long layer_offset, long long qkv_stride,
-                          cudaStream_t stream) {
-  const size_t smem = smem_bytes(T, hd);
-  auto kernel = decode_attn_update_kernel<QT, CT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(k_new),
-      static_cast<const QT*>(v_new), static_cast<CT*>(ck), static_cast<CT*>(cv),
-      static_cast<const float*>(bias), pos, pos_i64, static_cast<QT*>(out),
-      H, T, hd, 1.0f / sqrtf((float)hd), layer_offset, qkv_stride);
   return cudaGetLastError();
 }
 
@@ -561,9 +444,9 @@ cudaError_t with_types(int q_bf16, int cache_fp8, F&& f) {
   return cache_fp8 ? f(float{}, __nv_fp8_e4m3{}) : f(float{}, __nv_bfloat16{});
 }
 
-bool valid_shape(int L, int B, int H, int T, int hd, int layer) {
+bool valid_shape(int L, int B, int H, int T, int hd, int layer, int per) {
   return hd > 0 && hd % kVec == 0 && hd <= kMaxHd && T > 0 && layer >= 0 &&
-         layer < L && B > 0 && H > 0;
+         layer < L && B > 0 && H > 0 && per > 0 && (T + per - 1) / per <= 65535;
 }
 
 }  // namespace
@@ -578,13 +461,14 @@ extern "C" int genvc_decode_attention_layer(
     const void* q, const void* cache_k, const void* cache_v, const void* bias,
     void* out, void* scratch, int L, int B, int H, int T, int hd, int layer,
     int q_bf16, int cache_fp8, int per, void* stream) {
-  if (!valid_shape(L, B, H, T, hd, layer) || per < 1 || (T + per - 1) / per > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_shape(L, B, H, T, hd, layer, per)) return (int)cudaErrorInvalidValue;
   const long long offset = (long long)layer * B * H * T * hd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_types(q_bf16, cache_fp8, [&](auto qt, auto ct) {
-    return launch_split<decltype(qt), decltype(ct)>(q, cache_k, cache_v, bias, out,
-                                                    scratch, B, H, T, hd, per, offset, s);
+    using QT = decltype(qt);
+    using CT = decltype(ct);
+    return launch_split<QT, CT>(q, cache_k, cache_v, bias, out, scratch, B, H, T, hd,
+                                per, offset, (long long)H * hd, nullptr, s);
   });
 }
 
@@ -598,23 +482,24 @@ extern "C" size_t genvc_decode_attention_scratch_bytes(int B, int H, int T, int 
 // with pos[b] outside [0, T) are not written), then attend with q as above.
 // q, k_new, v_new have rows qkv_stride elements apart, heads hd apart. An
 // e4m3 cache stores e4m3_bits (an overflow as 0x7F / 0xFF). The bias marks
-// pos[b] valid. One launch, no scratch.
+// pos[b] valid. The same split, scratch and two launches as
+// genvc_decode_attention_layer.
 extern "C" int genvc_decode_attention_update_layer(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
-    void* cache_v, const void* bias, const void* pos, void* out, int L, int B,
-    int H, int T, int hd, int layer, long long qkv_stride, int q_bf16,
-    int cache_fp8, int pos_i64, void* stream) {
-  if (!valid_shape(L, B, H, T, hd, layer) || qkv_stride < (long long)H * hd)
+    void* cache_v, const void* bias, const void* pos, void* out, void* scratch,
+    int L, int B, int H, int T, int hd, int layer, long long qkv_stride, int q_bf16,
+    int cache_fp8, int pos_i64, int per, void* stream) {
+  if (!valid_shape(L, B, H, T, hd, layer, per) || qkv_stride < (long long)H * hd)
     return (int)cudaErrorInvalidValue;
   const long long offset = (long long)layer * B * H * T * hd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_types(q_bf16, cache_fp8, [&](auto qt, auto ct) {
-    return launch_update<decltype(qt), decltype(ct)>(q, k_new, v_new, cache_k, cache_v,
-                                                     bias, pos, pos_i64, out,
-                                                     B, H, T, hd, offset, qkv_stride, s);
+    using QT = decltype(qt);
+    using CT = decltype(ct);
+    const RowWrite<QT, CT> w{static_cast<const QT*>(k_new), static_cast<const QT*>(v_new),
+                             static_cast<CT*>(cache_k), static_cast<CT*>(cache_v), pos,
+                             pos_i64};
+    return launch_split<QT, CT>(q, cache_k, cache_v, bias, out, scratch, B, H, T, hd,
+                                per, offset, qkv_stride, &w, s);
   });
-}
-
-extern "C" size_t genvc_decode_attention_update_smem_bytes(int T, int hd) {
-  return smem_bytes(T, hd);
 }

@@ -31,10 +31,12 @@ Every other code reads as its e4m3 value.
 Bound on the card: bytes. A call must read one layer of K and V,
 ``2 * B * H * T * hd * sizeof(cache)`` bytes — 1.57 MB at the streaming shape
 (B=1, H=4, T=384, hd=256, bf16), 0.47 us at 3.35 TB/s — for 4*B*H*T*hd flops.
-K1 splits the cache length across blocks so that B*H*S blocks fill the SMs
-(:func:`split_len`): a logits pass and a P.V pass with a fixed-order combine,
-two CUDA launches per call, normalising by the global max and sum before the
-bf16 rounding as the reference does; see the source.
+Both kernels split the cache length across blocks so that B*H*S blocks fill
+the SMs (:func:`split_len`): a logits pass and a P.V pass with a fixed-order
+combine, two CUDA launches per call, normalising by the global max and sum
+before the bf16 rounding as the reference does. The update kernel stores
+each row's new K/V in its logits pass, from the block whose key range holds
+the row's position; see the source.
 
 ``decode_attention_layer`` runs the kernels for CUDA tensors and the plain
 PyTorch version (:func:`decode_attention_layer_plain`, same casts) only for
@@ -169,12 +171,10 @@ def decode_attention_layer(q, cache_k, cache_v, bias, layer_idx):
     _check_cuda(q, cache_k, cache_v)
     lib = _lib()
     n_layers, b, h, t, hd = cache_k.shape
-    per = split_len(b * h, t, SPLIT_BLOCKS_PER_SM * _sm_count(q.device))
+    per, scratch = _split_scratch(lib, b, h, t, hd, q.device)
     q = q.contiguous()
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
-    scratch = torch.empty(lib.genvc_decode_attention_scratch_bytes(b, h, t, hd, per),
-                          dtype=torch.uint8, device=q.device)
     err = lib.genvc_decode_attention_layer(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), n_layers, b, h, t, hd, int(layer_idx),
@@ -195,6 +195,13 @@ def split_len(bh, t, n_blocks):
     ``MIN_SPLIT_KEYS``, so that the ``bh * ceil(t / len)`` blocks are about
     ``n_blocks`` (one range once ``bh`` reaches it)."""
     return max(MIN_SPLIT_KEYS, -(-t // -(-n_blocks // bh)))
+
+
+def _split_scratch(lib, b, h, t, hd, device):
+    """The split of :func:`split_len` for this card, and its scratch."""
+    per = split_len(b * h, t, SPLIT_BLOCKS_PER_SM * _sm_count(device))
+    return per, torch.empty(lib.genvc_decode_attention_scratch_bytes(b, h, t, hd, per),
+                            dtype=torch.uint8, device=device)
 
 
 @functools.cache
@@ -257,9 +264,7 @@ def decode_attention_update_layer(q, k_new, v_new, cache_k, cache_v, bias, pos,
     _check_cuda(q, cache_k, cache_v)
     lib = _lib()
     n_layers, b, h, t, hd = cache_k.shape
-    if lib.genvc_decode_attention_update_smem_bytes(t, hd) > 227 * 1024:
-        raise ValueError(f"cache length {t} needs more shared memory than a "
-                         "block has")
+    per, scratch = _split_scratch(lib, b, h, t, hd, q.device)
     stride = _row_stride(q, k_new, v_new)
     if stride is None:
         q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
@@ -270,9 +275,10 @@ def decode_attention_update_layer(q, k_new, v_new, cache_k, cache_v, bias, pos,
     err = lib.genvc_decode_attention_update_layer(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), bias.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        n_layers, b, h, t, hd, int(layer_idx), stride,
+        scratch.data_ptr(), n_layers, b, h, t, hd, int(layer_idx), stride,
         int(q.dtype == torch.bfloat16), int(cache_k.dtype == _F8),
-        int(pos.dtype == torch.int64), torch.cuda.current_stream(q.device).cuda_stream)
+        int(pos.dtype == torch.int64), per,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_update kernel launch failed: CUDA "
                            f"error {err}")
@@ -303,10 +309,7 @@ def _lib():
         scratch.argtypes = [ctypes.c_int] * 5
         scratch.restype = ctypes.c_size_t
         up = lib.genvc_decode_attention_update_layer
-        up.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        up.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         up.restype = ctypes.c_int
-        sm = lib.genvc_decode_attention_update_smem_bytes
-        sm.argtypes = [ctypes.c_int, ctypes.c_int]
-        sm.restype = ctypes.c_size_t
     return lib

@@ -89,10 +89,15 @@ def _split_attention(q, ck, cv, bias, layer, n_split):
     (max, sum of exp); (b) the global (M, L) from the S pairs, p =
     bf16(exp(x - M) / L) per range, the range's P.V in f32; then the partials
     summed in the order s = 0..S-1."""
-    hd, t = q.shape[-1], ck.shape[3]
-    per = -(-t // n_split)
     k = ck[layer].to(torch.bfloat16).float()
     v = cv[layer].to(torch.bfloat16).float()
+    return _split_passes(q, k, v, bias, n_split)
+
+
+def _split_passes(q, k, v, bias, n_split):
+    """The two passes of the split over widened (B, H, T, hd) K and V."""
+    hd, t = q.shape[-1], k.shape[2]
+    per = -(-t // n_split)
     qf = q.to(torch.bfloat16).float()
     logits = torch.einsum("bhd,bhtd->bht", qf, k) * (1.0 / np.sqrt(hd)) + bias[:, None, :]
     ranges = [(s * per, min(t, (s + 1) * per)) for s in range(n_split)]
@@ -173,12 +178,13 @@ UPDATE_TOL = {"bf16": 4e-3, "e4m3": 2e-2}
 
 
 def _update_inputs(cache, qd, positions, seed=0):
-    """JAX test_decode_attention.py:84's case (L=3, B=4, H=2, T=64, hd=128):
-    the same values on both sides, q / k_new / v_new exact in ``qd``."""
+    """JAX test_decode_attention.py:84's case (L=3, H=2, T=64, hd=128; B = 4
+    there, one row per position here): the same values on both sides, q /
+    k_new / v_new exact in ``qd``."""
     rng = np.random.default_rng(seed)
     jc, tc, _ = CACHE[cache]
     jq, tq = QD[qd]
-    L, B, H, T, hd = 3, 4, 2, 64, 128
+    L, B, H, T, hd = 3, len(positions), 2, 64, 128
 
     def stored(x, jt):
         return np.array(jnp.asarray(x, jnp.float32).astype(jt).astype(jnp.float32))
@@ -252,6 +258,98 @@ OVERFLOW_BITS = [0x7F, 0x7E, 0x7F, 0xFF, 0x7E, 0x7E]
 OVERFLOW_READ = [480.0, 448.0, 480.0, -480.0, 448.0, 448.0]
 
 
+# ---- K3 as the split: the row write folded into the logits pass
+
+
+def _split_update_attention(q, kn, vn, ck, cv, bias, pos, layer, n_split):
+    """The arithmetic of K3's split kernels (csrc/decode_attention.cu) in
+    torch, caches updated in place: (a) the block whose key range holds
+    pos[b] rounds the new K / V rows to the cache type (``to_cache``) and
+    stores them at row pos[b] (a pos outside [0, T) lies in no range: no
+    write); its logit at pos[b] takes the rounded K row it holds, widened as
+    a read widens it, every other key comes from the cache as it was before
+    the launch; (b) reads V after (a)'s store, then K1's global (M, L),
+    bf16 p, partial P.V and the fixed-order combine."""
+    t = ck.shape[3]
+    per = -(-t // n_split)
+    k = tda.widen(ck[layer]).float()              # read by (a): before the store
+    for b, p in enumerate(pos.tolist()):
+        if not 0 <= p < t:
+            continue
+        s = p // per                              # the owning block's range
+        assert s * per <= p < min(t, (s + 1) * per)
+        k_row, v_row = tda.to_cache(kn[b], ck.dtype), tda.to_cache(vn[b], cv.dtype)
+        ck[layer, b, :, p], cv[layer, b, :, p] = k_row, v_row
+        k[b, :, p] = tda.widen(k_row).float()     # the owner's substitution
+    v = tda.widen(cv[layer]).float()              # read by (b): after the store
+    return _split_passes(q, k, v, bias, n_split)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8])
+@pytest.mark.parametrize("qd", ["bf16", "f32"])
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+def test_torch_split_update_arithmetic_matches_jax_kernel_and_plain(cache, qd, n_split):
+    """K3's split holds to the Pallas K3 (interpret mode) and to the plain
+    version: caches bit-equal and ``out`` within TOL, with rows at pos 0,
+    T - 1, past the end (T + 7), and on both edges of a key range (per * k
+    - 1 and per * k, the last key of one block and the first of the next),
+    one of them holding the overflow values (K: OVERFLOW, V: -OVERFLOW).
+    pos is int32 with a bf16 q and int64 (the engine's) with an f32 q.
+
+    Two stated exceptions on the Pallas side: its slab write-back clamps a
+    past-end slab index and there rewrites another row, so the caches are
+    held to the JAX package's scatter (``.at[].set``, which drops the row,
+    as the port does) and to the Pallas kernel on every other row; and its
+    own ``out`` reads an overflowed e4m3 code it has just rounded in
+    registers differently from what it stores (see the overflow test
+    below), so on that row ``out`` is held to ``decode_attention_layer``
+    over the JAX caches instead."""
+    t, n_layers, layer = 64, 3, 1
+    per = -(-t // n_split)
+    k = max(1, n_split // 2)
+    positions = [0, t - 1, t + 7, per * k - 1, per * k, 37]
+    over_row = 3
+    (jq, jkn, jvn, jck, jcv, jb), (tq, tkn, tvn, tck, tcv, tb) = \
+        _update_inputs(cache, qd, positions, seed=17 + n_split)
+    over = np.asarray(OVERFLOW, np.float32)
+    jkn, jvn = jkn.at[over_row, :, :6].set(over), jvn.at[over_row, :, :6].set(-over)
+    tkn[over_row, :, :6] = torch.from_numpy(over).to(tkn.dtype)
+    tvn[over_row, :, :6] = torch.from_numpy(-over).to(tvn.dtype)
+    tol = CACHE[cache][2]
+    pos = torch.tensor(positions, dtype=torch.int32 if qd == "bf16" else torch.int64)
+
+    jpos = jnp.asarray(positions, jnp.int32)
+    jout, pk, pv = jda.decode_attention_update_layer(jq, jkn, jvn, jck, jcv, jb, jpos,
+                                                     layer, interpret=True)
+    rows = jnp.arange(len(positions))
+    sk = jck.at[layer, rows, :, jpos].set(jkn.astype(jck.dtype))
+    sv = jcv.at[layer, rows, :, jpos].set(jvn.astype(jcv.dtype))
+    jwant = np.asarray(jda.decode_attention_layer(jq, sk, sv, jb, layer, interpret=True),
+                       np.float32)
+    plain_k, plain_v = tck.clone(), tcv.clone()
+    plain = tda.decode_attention_update_layer_plain(tq, tkn, tvn, plain_k, plain_v, tb,
+                                                    pos, layer)
+    before = tck.clone()
+    got = _split_update_attention(tq, tkn, tvn, tck, tcv, tb, pos, layer, n_split)
+
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    in_cache = [b for b, p in enumerate(positions) if p < t]
+    for mine, scatter, pallas, ref in ((tck, sk, pk, plain_k), (tcv, sv, pv, plain_v)):
+        np.testing.assert_array_equal(_bits(mine), _jbits(scatter, cache))
+        np.testing.assert_array_equal(_bits(mine)[:, in_cache],
+                                      _jbits(pallas, cache)[:, in_cache])
+        np.testing.assert_array_equal(_bits(mine), _bits(ref))
+    np.testing.assert_array_equal(_bits(tck[:, 2]), _bits(before[:, 2]))
+    if cache == "e4m3":
+        assert _bits(tck)[layer, over_row, 0, per * k - 1, :6].tolist() == OVERFLOW_BITS
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, plain.float().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, jwant, atol=tol, rtol=tol)
+    held = [b for b in range(len(positions)) if cache == "bf16" or b != over_row]
+    np.testing.assert_allclose(got[held], np.asarray(jout, np.float32)[held],
+                               atol=tol, rtol=tol)
+
+
 def test_torch_e4m3_overflow_cache_bits_and_attention_match_jax():
     """K/V rows holding OVERFLOW, written into an e4m3 cache by the port's
     lockstep write (``to_cache``, what the engine calls) and per-row update
@@ -321,23 +419,27 @@ def test_torch_update_layer_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,n_layers", [(384, 30), (128, 4), (1024, 4)])
 @pytest.mark.parametrize("cache", ["bf16", "e4m3"])
-def test_torch_cuda_update_kernel_matches_plain(cache):
+def test_torch_cuda_update_kernel_matches_plain(cache, t, n_layers):
     """On a card: the kernel's caches bit-equal to the plain version's, ``out``
     within K1's tolerance of it, on strided q / k / v views of one fused
-    projection, with rows at 0, T - 1 and past the cache."""
+    projection, with rows at 0, T - 1, past the cache and on both edges of
+    one of the split's key ranges (its last key, the next range's first)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, (tq, tk, tv, tb) = _inputs(cache, "bf16", L=30, b=16, h=4, t=384, hd=256)
+    _, (tq, tk, tv, tb) = _inputs(cache, "bf16", L=n_layers, b=16, h=4, t=t, hd=256)
     tk, tv, tb = tk.cuda(), tv.cuda(), tb.cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(16, 1, 3 * 4 * 256, generator=g, device="cuda").to(torch.bfloat16)
     q, kn, vn = (x.reshape(16, 4, 256) for x in qkv.chunk(3, dim=-1))
-    pos = torch.randint(0, 384, (16,), generator=g, device="cuda")
-    pos[0], pos[1], pos[2] = 0, 383, 384
+    per = tda.split_len(16 * 4, t, tda.SPLIT_BLOCKS_PER_SM * tda._sm_count(tk.device))
+    edge = per * max(1, -(-t // per) // 2)
+    pos = torch.randint(0, t, (16,), generator=g, device="cuda")
+    pos[0], pos[1], pos[2], pos[3], pos[4] = 0, t - 1, t, edge - 1, min(edge, t - 1)
     tol = CACHE[cache][2]
     before = tda.decode_attention_update_layer.launches
-    for layer in (0, 29):
+    for layer in (0, n_layers - 1):
         ck, cv = tk.clone(), tv.clone()
         got = tda.decode_attention_update_layer(q, kn, vn, tk, tv, tb, pos, layer)
         want = tda.decode_attention_update_layer_plain(q, kn, vn, ck, cv, tb, pos, layer)
