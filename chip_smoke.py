@@ -20,13 +20,19 @@ shapes (T = 184 and 328) and at tile edges, with device times (a
 JAX package's e4m3 rule at overflow (0x7F / 0xFF stored past 464, read as
 +-480) and records each build's registers, spills and shared memory
 (``-Xptxas -v``). Kernel / library ratios are printed for K1, K2, K4 and
-K5 + K6.
+K5 + K6. The beam reorder (``engine.reorder_rows``, an ``index_select`` of
+the cache by parent beam) at the flagship cache of 4 beams, bf16 and e4m3:
+rows bit-equal to their parents', K1 on the reordered cache against its
+plain version, and its device time against its byte bound.
 
 Phase 2 runs a small f32 configuration on the card and on the CPU with the
 same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
-2-slot ``StreamServer`` (three streams, one arriving mid-flight) must give the
-same lengths and audio within 1e-3; two GPT training steps (K4 / K5 / K6 on
-the card) must give the same codes, losses, gradient norms and parameters.
+2-slot ``StreamServer`` (three streams, one arriving mid-flight), and
+offline beam search (3 beams), group beam search (4 beams, 2 groups) and
+contrastive search (4 candidates) must give the same lengths and audio
+within 1e-3; beam_sample (3 beams) with one noise sequence handed to both
+the same tokens; two GPT training steps (K4 / K5 / K6 on the card) must
+give the same codes, losses, gradient norms and parameters.
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
@@ -34,11 +40,15 @@ Phase 3 drives every ported path through its entry points at flagship width
 wavs: ``synthesize_streaming`` (5 runs), ``synthesize`` on a 7.68 s source
 (two segments; 3 runs), ``synthesize_batch`` / ``synthesize_streaming_batch``
 with 4 utterances (2 runs each), each after one warm-up, and a ``StreamServer``
-of 8 slots draining 16 streams submitted at once (one warm-up drain, 2 timed).
-It checks the audio and that the kernels of each path were launched as often
-as the path says: K1 30 times per lockstep decode step, K4 30 times per
-latent pass, K3 30 times per per-row decode step of the server (and the
-others not at all there).
+of 8 slots draining 16 streams submitted at once (one warm-up drain, 2 timed);
+and on the 1.54 s source offline beam search and beam_sample (4 beams), group
+beam search (4 beams, 2 groups), contrastive search (4 candidates) and, at
+the engine level, constrained beam search (4 beams, one two-token phrase),
+each once to warm up and twice timed. It checks the audio and that the
+kernels of each path were launched as often as the path says: K1 30 times
+per lockstep decode step (a search's forward at B = beams or candidates),
+K4 30 times per latent pass, K3 30 times per per-row decode step of the
+server (and the others not at all there).
 
 Phase 4 trains the GPT at flagship width (stage 3, bf16 on f32 masters,
 attention kernels K4 forward, K5 / K6 backward) through
@@ -134,27 +144,37 @@ def time_ms(fn, iters=200, warmup=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=50, warmup=5):
+def device_ms(fn, iters=50, warmup=5, tries=5):
     """Device time of one call of ``fn``: the summed durations of the CUDA
     kernels its calls launch, traced with ``torch.profiler`` over ``iters``
     calls, and the kernels launched per call. ``time_ms`` over a loop of
     calls is bounded below by the host's time per call (the wrapper's Python
-    and the launches), which for these small kernels exceeds the device's."""
+    and the launches), which for these small kernels exceeds the device's.
+
+    The tracer now and then loses device records (one run kept 14 of 100).
+    A trace counts only if it holds a device record for every launch the
+    host made (the ``*LaunchKernel*`` runtime calls it traced) and the same
+    number for each call; else it is taken again, up to ``tries`` times, and
+    then the time is not measured (None, None)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # the tracer now and then returns no device events
+    for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [ev.time_range for ev in prof.events()
+        events = prof.events()
+        spans = [ev.time_range for ev in events
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
-            return sum(tr.end - tr.start for tr in spans) / iters / 1e3, len(spans) / iters
-    print("device_ms: the trace held no device activity three times: not measured",
-          flush=True)
+        n_launch = sum(1 for ev in events if ev.device_type != torch.autograd.DeviceType.CUDA
+                       and "LaunchKernel" in ev.name)
+        if spans and len(spans) >= n_launch and len(spans) % iters == 0:
+            return sum(tr.end - tr.start for tr in spans) / iters / 1e3, len(spans) // iters
+        print(f"device_ms: the trace held {len(spans)} device records for {n_launch} "
+              f"launches in {iters} calls: taken again", flush=True)
+    print(f"device_ms: no complete trace in {tries} tries: not measured", flush=True)
     return None, None
 
 
@@ -181,12 +201,12 @@ def check_decode_attention(da):
     type, and bf16 at B in {1, 4, 8, 16} x T in {128, 384, 1024} (row 0 of a
     batch has a single valid key). Times kernel, plain version and SDPA;
     returns the timing record of the main-path configuration (bf16 cache,
-    bf16 q, B=1, T=384)."""
+    bf16 q, B=1, T=384) and of the beam searches' shape (B=4, T=384)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    main = None
+    main = beam = None
     bf = torch.bfloat16
     cases = ([(1, T, bf, bf)] + [(b, t, bf, bf) for b, t in DECODE_SHAPES if (b, t) != (1, T)]
              + [(1, T, torch.float8_e4m3fn, bf), (16, T, torch.float8_e4m3fn, bf),
@@ -235,6 +255,8 @@ def check_decode_attention(da):
         print("decode_attention_layer " + json.dumps(rec), flush=True)
         if i == 0:
             main = rec
+        if (b, t, cdt, qdt) == (4, T, bf, bf):
+            beam = rec
         del q, ck, cv, bias
     # K2 (single-layer cache) is the same kernel with L = 1
     b = 2
@@ -260,7 +282,60 @@ def check_decode_attention(da):
     rec["library_device_ms"], _ = device_ms(lambda: sdpa(q[:, :, None, :], k2, v2, attn_mask=m4))
     rec["device_ratio"] = ratio(rec["device_ms"], rec["library_device_ms"])
     print("decode_attention (L=1) " + json.dumps(rec), flush=True)
-    return main
+    return main, beam
+
+
+def check_beam_reorder(da, engine, gpu):
+    """The beam reorder at the flagship cache of 4 beams (30 x 4 x 4 x 384 x
+    256, bf16 and e4m3): each row equals its parent's bit for bit under a
+    parent vector with a cycle and a repeat, and K1 on the reordered cache
+    (a buffer ``index_select`` wrote) agrees with its plain version. Device
+    time of one reorder (K and V, key_valid, seen) against its byte bound
+    (read and write both caches once). Returns the bf16 record."""
+    L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
+    nb = 4
+    parent = torch.tensor([1, 2, 0, 1], device="cuda")
+    recs = {}
+    for cdt in (torch.bfloat16, torch.float8_e4m3fn):
+        q, ck, cv, bias = decode_inputs(nb, cdt, torch.bfloat16, seed=7)
+        state = engine.DecodeState(
+            cache_k=ck, cache_v=cv, key_valid=bias == 0, cur_index=T - 1, n_generated=1,
+            last_token=torch.zeros(nb, dtype=torch.long, device="cuda"),
+            seen=torch.zeros(nb, 1026, dtype=torch.bool, device="cuda"),
+            finished=torch.zeros(nb, dtype=torch.bool, device="cuda"), generator=None)
+        bits = (lambda x: x.view(torch.uint8) if x.element_size() == 1 else x.view(torch.int16))
+        want_k, want_v = bits(ck)[:, parent].clone(), bits(cv)[:, parent].clone()
+        spare = (torch.empty_like(ck), torch.empty_like(cv))
+        spare = engine.reorder_rows(state, parent, spare)
+        if not (torch.equal(bits(state.cache_k), want_k) and torch.equal(bits(state.cache_v),
+                                                                          want_v)):
+            raise AssertionError(f"beam reorder {cdt}: rows differ from their parents'")
+        bias = bias[parent]
+        worst = 0.0
+        for layer in (0, L - 1):
+            got = da.decode_attention_layer(q, state.cache_k, state.cache_v, bias, layer).float()
+            want = da.decode_attention_layer_plain(q, state.cache_k, state.cache_v, bias,
+                                                   layer).float()
+            err = (got - want).abs()
+            worst = max(worst, float(err.max()))
+            if not bool((err <= TOL + TOL * want.abs()).all()):
+                raise AssertionError(f"K1 on a reordered {cdt} cache: max |err| {worst}")
+
+        def reorder():
+            nonlocal spare
+            spare = engine.reorder_rows(state, parent, spare)
+
+        dev, per_call = device_ms(reorder, iters=20)
+        n_bytes = 2 * 2 * ck.numel() * ck.element_size()
+        rec = {"B": nb, "T": T, "cache": str(cdt).replace("torch.", ""),
+               "bytes": n_bytes, "device_ms": dev, "launches_per_call": per_call,
+               "ms": time_ms(reorder, iters=20, warmup=2),
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "k1_on_reordered_max_abs_err": worst, "tol": TOL, "gpu": gpu}
+        print("beam_reorder " + json.dumps(rec), flush=True)
+        recs[rec["cache"]] = rec
+        del q, ck, cv, state, spare
+    return recs["bfloat16"]
 
 
 def flash_inputs(b, t, hd, dtype, tail, seed, h=4):
@@ -547,8 +622,7 @@ def check_decode_attention_update(da):
             lib_dev, _ = device_ms(lib_call)
         dev, per_call = device_ms(lambda: da.decode_attention_update_layer(
             q, kn, vn, ck, cv, bias, pos, next(lidx) % L))
-        # the tracer now and then drops an event: a count per call near 2
-        if per_call is not None and round(per_call) != 2:
+        if per_call is not None and per_call != 2:
             raise AssertionError(f"decode_attention_update: {per_call} CUDA launches a "
                                  "call, not the split's 2")
         qe = q.element_size()
@@ -673,31 +747,71 @@ def serve(server_cls, pipe, srcs, refs, **kw):
     return [server.result(sid)[0] for sid in sids]
 
 
-def check_small_against_cpu(pipeline, server_cls, fa, src, ref, ref16):
+def beam_sample_tokens(pipe, engine, seg, ref, noise, nb=3):
+    """beam_sample over one segment at the engine level, its Gumbel noise
+    from ``noise`` (the same draws on every device): the token list."""
+    import numpy as np
+
+    pipe._cond_latent = pipe.get_gpt_cond_latents(ref)
+    padded = np.pad(seg, ((0, 0), (0, pipe._seg_len_16k - seg.shape[-1])))
+    codes, n_codes = pipe.extract_content_codes(padded, seg.shape[-1])
+    prefix, valid, state = pipe._tiled_segment(codes, n_codes, nb)
+    with torch.inference_mode():
+        buf, n = engine.decode_beam(pipe.gpt, state, prefix, valid, pipe._max_new(n_codes),
+                                    nb, repetition_penalty=2.0, do_sample=True,
+                                    temperature=1.3, top_k=8, top_p=0.9, noise=noise)
+    return buf[:n].tolist()
+
+
+def check_small_against_cpu(pipeline, engine, server_cls, fa, src, ref, ref16):
     """A small f32 configuration (hd = 16) on the card vs the same weights on
-    the CPU: greedy streaming, offline, batch (two rows of different lengths)
-    and a 2-slot server (first window 4, three streams, the third arriving
-    after the first step) give the same lengths and audio within 1e-3."""
+    the CPU: greedy streaming, offline, batch (two rows of different lengths),
+    a 2-slot server (first window 4, three streams, the third arriving after
+    the first step), and offline beam (3 beams), group beam (4 beams, 2
+    groups) and contrastive search (4 candidates) give the same lengths and
+    audio within 1e-3; beam_sample (3 beams) with one noise sequence, drawn
+    on the CPU from a seeded generator and handed to both, the same
+    tokens."""
     cfg = small_config(pipeline)
     tree = pipeline.random_tree(cfg, seed=1, device="cpu", contentvec_layers=2)
+    seg = src[:, :24000]
     runs = {
         "streaming": lambda p: [p.synthesize_streaming(src[:, :16000], ref, verbose=False)[0]],
-        "offline": lambda p: [p.synthesize(src[:, :24000], ref)],
+        "offline": lambda p: [p.synthesize(seg, ref)],
+        "beam": lambda p: [p.synthesize(seg, ref, num_beams=3)],
+        "group_beam": lambda p: [p.synthesize(seg, ref, num_beams=4, num_beam_groups=2)],
+        "contrastive": lambda p: [p.synthesize(seg, ref, penalty_alpha=0.6,
+                                               contrastive_top_k=4)],
         "batch": lambda p: p.synthesize_batch([src[:, :24000], ref16[:, :40000]],
                                               [ref, ref[:, :48000]]),
         "server": lambda p: serve(server_cls, p, [src[:, :16000], ref16[:, :40000],
                                                   src[:, 8000:20000]],
                                   [ref, ref[:, :48000], ref], slots=2, first_window=4),
     }
-    outs = {}
+    gen = torch.Generator().manual_seed(3)
+    draws = {}
+
+    def noise(s):  # (3 beams x V,) Gumbel noise of step s, drawn once
+        if s not in draws:
+            n = 3 * pipeline.gpt_model.GPTConfig.num_audio_tokens
+            draws[s] = -torch.log(torch.empty(n).exponential_(generator=gen))
+        return draws[s]
+
+    outs, tokens = {}, {}
     for dev in ("cpu", "cuda"):
         pipe = pipeline.build_pipeline(tree, cfg, device=dev, dtype=torch.float32)
         pipe.gen_cap_tokens_per_code = 1.0
         for name, run in runs.items():
             fa.flash_attention.launches = 0
             outs[name, dev] = run(pipe)
-            if dev == "cuda" and name in ("offline", "batch") and fa.flash_attention.launches == 0:
+            if (dev == "cuda" and name not in ("streaming", "server")
+                    and fa.flash_attention.launches == 0):
                 raise AssertionError(f"small-config {name}: the flash kernel never ran")
+        tokens[dev] = beam_sample_tokens(pipe, engine, seg, ref, noise)
+    print(f"small f32 config beam_sample, card vs CPU: {len(tokens['cuda'])} vs "
+          f"{len(tokens['cpu'])} tokens, equal {tokens['cuda'] == tokens['cpu']}", flush=True)
+    if tokens["cuda"] != tokens["cpu"] or len(tokens["cpu"]) < 2:
+        raise AssertionError("small-config beam_sample tokens differ between card and CPU")
     for name in runs:
         for a, b in zip(outs[name, "cpu"], outs[name, "cuda"]):
             err = float(abs(a - b).max()) if a.shape == b.shape and a.size else None
@@ -800,6 +914,65 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
             "k1_launches": n.k1, "k3_launches": n.k3, "k4_launches": n.k4,
             "gpu": gpu}), flush=True)
     return n.counts()
+
+
+def check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder, runs=2):
+    """Offline beam search (4 beams), beam_sample (4), group beam search (4
+    beams, 2 groups) and contrastive search (4 candidates) through
+    ``synthesize``, and constrained beam search (4 beams, one two-token
+    phrase) through ``engine.decode_constrained`` in ``synthesize``'s place of
+    the segment decoder, on the 1.54 s source; each after one warm-up.
+    Checks the audio and the launches (K1 30 per forward, K4 30 per latent
+    pass, K3 / K5 / K6 none); prints wall ms, RTF and forwards, beside the
+    beam reorder's device ms per step (``reorder``, phase 1's record at these
+    shapes). Returns the launch counts of each mode's last run."""
+    seconds = src.shape[-1] / 16000
+    layers = pipe.gpt_cfg.layers
+
+    def constrained_segment(codes, n_codes):
+        prefix, valid, state = pipe._tiled_segment(codes, n_codes, 4)
+        buf, n = engine.decode_constrained(
+            pipe.gpt, state, prefix, valid, pipe._max_new(n_codes), 4, [[17, 3]],
+            repetition_penalty=pipe.sampler.repetition_penalty,
+            prefix_fake_len=pipe.gpt_cfg.n_cond_latents + n_codes + 3)
+        return buf[:n].tolist(), state.steps
+
+    modes = {
+        "beam": lambda: pipe.synthesize(src, ref, num_beams=4),
+        "beam_sample": lambda: pipe.synthesize(src, ref, num_beams=4, beam_do_sample=True),
+        "group_beam": lambda: pipe.synthesize(src, ref, num_beams=4, num_beam_groups=2),
+        "contrastive": lambda: pipe.synthesize(src, ref, penalty_alpha=0.6,
+                                               contrastive_top_k=4),
+        "constrained": lambda: pipe._synthesize_with(src, ref, constrained_segment),
+    }
+    by_path = {}
+    for name, run_mode in modes.items():
+        run_mode()  # warm-up
+        rtf = []
+        for run in range(runs):
+            with Launches(da, fa) as n:
+                t0 = time.perf_counter()
+                wav = run_mode()
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+            timing = pipe.last_timing
+            check_audio(name, wav, pipe.sample_rate)
+            expect(f"{name} K1", n.k1, layers * timing["decode_steps"])
+            expect(f"{name} K4", n.k4, layers * timing["latent_passes"])
+            expect_none(name, n, ("k3", "k5", "k6"))
+            rtf.append(elapsed / seconds)
+            print(f"{name} run {run}: {seconds:.2f} s source, {wav.size} samples, "
+                  f"{elapsed * 1e3:.1f} ms, RTF {rtf[-1]:.4f}, forwards "
+                  f"{timing['decode_steps']}, latent passes {timing['latent_passes']}, "
+                  f"K1 launches {n.k1}, K4 launches {n.k4}", flush=True)
+        by_path[name] = n.counts()
+        print(json.dumps({name: {
+            "rtf_median": statistics.median(rtf), "runs": len(rtf),
+            "forwards": timing["decode_steps"], "source_s": seconds,
+            # contrastive search copies one slot a step instead of reordering
+            "reorder_device_ms_per_step": None if name == "contrastive"
+            else reorder["device_ms"], "gpu": gpu}}), flush=True)
+    return by_path
 
 
 def _stage_trees(paths):
@@ -1050,6 +1223,7 @@ def main() -> int:
     import numpy as np
 
     from genvc_tpu_torch import _build
+    from genvc_tpu_torch.decode import engine
     from genvc_tpu_torch.dsp.audio_io import load_audio
     from genvc_tpu_torch.inference import pipeline
     from genvc_tpu_torch.ops import decode_attention as da
@@ -1075,7 +1249,8 @@ def main() -> int:
         f"{part}_{dt}_T{t}": fa.bwd_smem_bytes(8, 4, t, 256, part == "dkdv", dt == "bf16")
         for part in ("dq", "dkdv") for dt in ("bf16", "f32") for t in (184, 328)}}
     print("flash_attention_bwd build " + json.dumps(bwd_build), flush=True)
-    k1 = check_decode_attention(da)
+    k1, k1_beam = check_decode_attention(da)
+    reorder_rec = check_beam_reorder(da, engine, gpu)
     k3_recs = check_decode_attention_update(da)
     k3 = k3_recs[8, "bfloat16"]
     check_fp8_overflow(da)
@@ -1089,7 +1264,7 @@ def main() -> int:
     ref2 = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 24000)
     if any(x is None for x in (src, ref, src2, ref2)):
         raise RuntimeError("could not load the sample wavs")
-    check_small_against_cpu(pipeline, StreamServer, fa, src, ref, src2)
+    check_small_against_cpu(pipeline, engine, StreamServer, fa, src, ref, src2)
     with tempfile.TemporaryDirectory() as tmp:
         check_small_train_against_cpu(da, fa, tmp)
 
@@ -1180,6 +1355,7 @@ def main() -> int:
         print(json.dumps({name: {"aggregate_rtf_median": statistics.median(rtf),
                                  "runs": len(rtf), "utterances": len(srcs),
                                  "source_s": total_s, "gpu": gpu}}), flush=True)
+    by_path.update(check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder_rec))
     # serving: 16 streams (the batch's 4 sources x 4) into 8 slots at once
     by_path["serving"] = check_serving(pipe, StreamServer, srcs * 4, [ref, ref2] * 8,
                                        da, fa, gpu)
@@ -1204,7 +1380,13 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": "bytes",
         "library_ms": k1["library_ms"], "ratio": k1["ratio"],
-        "cuda_launches_per_call": k1["cuda_launches_per_call"]}, {
+        "cuda_launches_per_call": k1["cuda_launches_per_call"],
+        "beam_shape": {key: k1_beam[key] for key in (
+            "B", "T", "ms", "device_ms", "library_ms", "library_device_ms", "device_ratio",
+            "bound_ms", "max_abs_err")},
+        "on_reordered_cache_max_abs_err": reorder_rec["k1_on_reordered_max_abs_err"],
+        "beam_reorder": {key: reorder_rec[key] for key in (
+            "B", "T", "device_ms", "bound_ms", "launches_per_call")}}, {
         "name": "decode_attention_update_layer", "route": "cuda",
         "design": "K1's split over the cache length, two passes, the row write "
                   "folded into the logits pass by the block whose key range holds it",

@@ -7,6 +7,11 @@ Usage:
         --output_path out.wav [--streaming] [--top_k 1] [--bf16] \
         [--kv_cache fp8] [--seed 0] [--device cuda]
 
+    # offline search modes (single utterance, without --streaming)
+    ... --num_beams 4 [--length_penalty 1.0] [--beam_do_sample]
+    ... --num_beams 4 --num_beam_groups 2 [--diversity_penalty 1.0]
+    ... --penalty_alpha 0.6 [--contrastive_top_k 4]
+
     # batch: N sources in one lockstep pass (one reference is broadcast)
     python -m genvc_tpu_torch.infer --model_path GenVC_small.pth \
         --src_wavs a.wav b.wav --ref_audios r.wav \
@@ -16,8 +21,11 @@ Without ``--streaming`` the conversion is offline (``synthesize`` /
 ``synthesize_batch``); with it, streamed (``synthesize_streaming`` /
 ``synthesize_streaming_batch``, or with ``--serve SLOTS`` a continuous-batching
 ``StreamServer`` of SLOTS decode slots, which prints each stream's latency and
-RTF and the pool's counters). Flags of modes not yet ported, and ``--serve``
-without ``--src_wavs --streaming``, exit with code 2.
+RTF and the pool's counters). The search flags (``--num_beams``,
+``--num_beam_groups``, ``--penalty_alpha`` and their options) act on the
+offline conversion of one utterance; streaming and batch ignore them, as in
+the JAX package. ``--quantize`` (not ported yet), and ``--serve`` without
+``--src_wavs --streaming``, exit with code 2.
 """
 
 from __future__ import annotations
@@ -30,8 +38,6 @@ import sys
 # flags of modes the port does not have yet, and --serve without the mode it
 # serves: (test on the parsed args, message)
 _NOT_PORTED = [
-    (lambda a: a.num_beams > 1 or a.num_beam_groups > 1 or a.penalty_alpha > 0,
-     "beam, group-beam and contrastive decoding are not ported yet (ROADMAP A10)"),
     (lambda a: a.serve > 0 and not (a.src_wavs and a.streaming),
      "--serve SLOTS takes effect with --src_wavs and --streaming (the "
      "StreamServer, ROADMAP A11)"),
@@ -61,9 +67,19 @@ def main(argv=None) -> int:
                         help="run the GPT in bfloat16")
     parser.add_argument("--kv_cache", type=str, default=None, choices=["fp8"],
                         help="store the decode KV cache as float8_e4m3")
-    parser.add_argument("--num_beams", type=int, default=1)
-    parser.add_argument("--num_beam_groups", type=int, default=1)
-    parser.add_argument("--penalty_alpha", type=float, default=0.0)
+    parser.add_argument("--num_beams", type=int, default=1,
+                        help="beam search for offline conversion; 1 = sampling")
+    parser.add_argument("--beam_do_sample", action="store_true",
+                        help="with --num_beams > 1: HF beam_sample (multinomial "
+                             "beam search with the sampling warpers)")
+    parser.add_argument("--length_penalty", type=float, default=1.0)
+    parser.add_argument("--num_beam_groups", type=int, default=1,
+                        help="with --num_beams > 1: group (diverse) beam search")
+    parser.add_argument("--diversity_penalty", type=float, default=1.0)
+    parser.add_argument("--penalty_alpha", type=float, default=0.0,
+                        help="contrastive search for offline conversion over "
+                             "--contrastive_top_k candidates; 0 = off")
+    parser.add_argument("--contrastive_top_k", type=int, default=4)
     parser.add_argument("--serve", type=int, default=0, metavar="SLOTS",
                         help="with --src_wavs --streaming: convert through a "
                              "continuous-batching StreamServer of SLOTS decode slots")
@@ -131,7 +147,13 @@ def main(argv=None) -> int:
     if args.streaming:
         wav, _, _ = pipe.synthesize_streaming(src_wav, ref_audio)
     else:
-        wav = pipe.synthesize(src_wav, ref_audio)
+        wav = pipe.synthesize(src_wav, ref_audio, num_beams=args.num_beams,
+                              length_penalty=args.length_penalty,
+                              penalty_alpha=args.penalty_alpha,
+                              contrastive_top_k=args.contrastive_top_k,
+                              beam_do_sample=args.beam_do_sample,
+                              num_beam_groups=args.num_beam_groups,
+                              diversity_penalty=args.diversity_penalty)
     if wav.shape[-1] == 0:
         print("decode produced no audio", file=sys.stderr)
         return 1

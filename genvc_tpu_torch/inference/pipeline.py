@@ -1,5 +1,5 @@
 """Voice conversion, streaming and offline (``genvc_tpu/inference/pipeline.py``
-without the beam, contrastive and quantized modes; the serving pool is
+without the quantized modes; the serving pool is
 ``serving.server.StreamServer``, built on ``stream_chunk_batch`` here).
 
 The chain: resample the source to 16 kHz; ContentVec -> content-dVAE codes
@@ -13,7 +13,9 @@ prefix + prefill; then
   HiFi-GAN with its own conv context; windows joined with a 1024-sample
   crossfade;
 * offline (``synthesize``, and ``synthesize_batch``): decode each segment to
-  its stop token or cap (``engine.decode_all``), re-run the generated codes
+  its stop token or cap (``engine.decode_all``, or with ``num_beams > 1`` /
+  ``penalty_alpha > 0`` one of the engine's beam, group-beam and contrastive
+  searches over the segment tiled to the beams), re-run the generated codes
   teacher-forced through the GPT for their latents (the latent pass, whose
   attention is the flash-attention kernel), and vocode the whole utterance
   in one masked call.
@@ -264,6 +266,70 @@ class GenVCPipeline:
         return state, tok0, lat0, codes, n_codes
 
     @torch.inference_mode()
+    def _tiled_segment(self, codes, n_codes: int, rows: int):
+        """One segment's hypothesis tiled to ``rows`` rows (beams or
+        candidates): (prefix, prefix_valid, a fresh decode state at the
+        pipeline's cache type and capacity)."""
+        prefix, valid = gpt_model.build_prefix_emb(
+            self.gpt, self._cond_latent.expand(rows, -1, -1), codes.expand(rows, -1),
+            torch.full((rows,), n_codes, device=self.device))
+        state = engine.init_state(self.gpt_cfg, self._prefix_width, rows, self.device,
+                                  cache_dtype=self.cache_dtype, generator=self.generator,
+                                  gen_tokens=self._cache_gen_tokens())
+        return prefix, valid, state
+
+    @torch.inference_mode()
+    def generate_segment_codes(self, codes, n_codes: int, num_beams: int = 1,
+                               length_penalty: float = 1.0, penalty_alpha: float = 0.0,
+                               contrastive_top_k: int = 4, beam_do_sample: bool = False,
+                               num_beam_groups: int = 1, diversity_penalty: float = 1.0):
+        """AR generation for one segment (``codes`` (1, TEXT_WIDTH) on the
+        device, ``n_codes`` of them valid, after :meth:`get_gpt_cond_latents`
+        set ``_cond_latent``); returns (generated tokens incl. the stop token,
+        the forwards run; the JAX package returns None there).
+        ``penalty_alpha > 0`` with ``num_beams <= 1`` is contrastive search
+        over ``contrastive_top_k`` candidates; ``num_beams > 1`` with
+        ``num_beam_groups > 1`` group beam search with ``diversity_penalty``
+        (``beam_do_sample`` raises there); ``num_beams > 1`` beam search with
+        ``length_penalty``, or with ``beam_do_sample`` HF beam_sample under
+        the sampler's warpers (what the reference's ``inference(num_beams >
+        1)`` reaches); otherwise the sampler's decoding."""
+        max_new = self._max_new(n_codes)
+        smp = self.sampler
+        # HF normalises by the fake input_ids length: cond latents +
+        # [start_text | codes | stop_text] + start_audio
+        fake_len = self.gpt_cfg.n_cond_latents + n_codes + 3
+        if num_beams <= 1 and penalty_alpha > 0.0:
+            prefix, valid, state = self._tiled_segment(codes, n_codes, contrastive_top_k)
+            buf, n = engine.decode_contrastive(
+                self.gpt, state, prefix, valid, max_new, top_k=contrastive_top_k,
+                penalty_alpha=float(penalty_alpha),
+                repetition_penalty=smp.repetition_penalty)
+        elif num_beams > 1 and num_beam_groups > 1:
+            if beam_do_sample:
+                raise ValueError("group beam search is deterministic; do_sample is "
+                                 "not supported with num_beam_groups > 1 (HF rejects "
+                                 "it too)")
+            prefix, valid, state = self._tiled_segment(codes, n_codes, num_beams)
+            buf, n = engine.decode_group_beam(
+                self.gpt, state, prefix, valid, max_new, num_beams, num_beam_groups,
+                diversity_penalty=float(diversity_penalty), length_penalty=length_penalty,
+                repetition_penalty=smp.repetition_penalty, prefix_fake_len=fake_len)
+        elif num_beams > 1:
+            prefix, valid, state = self._tiled_segment(codes, n_codes, num_beams)
+            buf, n = engine.decode_beam(
+                self.gpt, state, prefix, valid, max_new, num_beams,
+                length_penalty=length_penalty, repetition_penalty=smp.repetition_penalty,
+                prefix_fake_len=fake_len, do_sample=beam_do_sample,
+                temperature=smp.temperature, top_k=smp.top_k, top_p=smp.top_p)
+        else:
+            prefix, valid, state = self._tiled_segment(codes, n_codes, 1)
+            engine.prefill(self.gpt, state, prefix, valid, smp)
+            toks, n_gen = engine.decode_all(self.gpt, state, smp, max_new)
+            buf, n = toks[0], int(n_gen[0])
+        return buf[:n].tolist(), state.steps
+
+    @torch.inference_mode()
     def _latent_pass(self, codes, n_codes, gens, cond):
         """Teacher-forced latents of the generated codes (the JAX
         ``latent_fn``): ``gens`` holds each row's codes without the stop
@@ -342,35 +408,48 @@ class GenVCPipeline:
 
     @torch.inference_mode()
     def synthesize(self, src_wav: np.ndarray, ref_audio: np.ndarray,
-                   num_beams: int = 1, penalty_alpha: float = 0.0) -> np.ndarray:
+                   num_beams: int = 1, length_penalty: float = 1.0,
+                   penalty_alpha: float = 0.0, contrastive_top_k: int = 4,
+                   beam_do_sample: bool = False, num_beam_groups: int = 1,
+                   diversity_penalty: float = 1.0) -> np.ndarray:
         """Non-streaming VC (reference synthesize_utt): ``src_wav`` (1, T) at
         16 kHz, ``ref_audio`` (1, T) at 24 kHz -> (T_out,) at 24 kHz. Per 6 s
-        segment: content codes + prefill, ``decode_all``, the latent pass;
-        then one masked vocoder call over the whole utterance.
-        ``self.last_timing`` counts ``decode_steps`` and ``latent_passes``.
-        Only greedy / sampled decoding is ported (``num_beams`` 1,
-        ``penalty_alpha`` 0)."""
-        if num_beams > 1 or penalty_alpha > 0.0:
-            raise NotImplementedError("beam and contrastive decoding are not "
-                                      "ported yet (ROADMAP A10)")
+        segment: content codes, the tokens of the decoding that
+        :meth:`generate_segment_codes` routes to (the sampler's, or with
+        ``num_beams > 1`` / ``penalty_alpha > 0`` a search: the reference
+        ``HiFiGANTrainer.inference`` surface and the vendored HF generator's
+        modes), the latent pass; then one masked vocoder call over the whole
+        utterance. ``self.last_timing`` counts ``decode_steps`` (the
+        forwards run) and ``latent_passes``."""
+        return self._synthesize_with(src_wav, ref_audio, lambda codes, n_code: (
+            self.generate_segment_codes(
+                codes, n_code, num_beams=num_beams, length_penalty=length_penalty,
+                penalty_alpha=penalty_alpha, contrastive_top_k=contrastive_top_k,
+                beam_do_sample=beam_do_sample, num_beam_groups=num_beam_groups,
+                diversity_penalty=diversity_penalty)))
+
+    @torch.inference_mode()
+    def _synthesize_with(self, src_wav: np.ndarray, ref_audio: np.ndarray,
+                         decode_segment) -> np.ndarray:
+        """:meth:`synthesize` with each segment's tokens from
+        ``decode_segment(codes, n_codes)`` -> (tokens incl. the stop token,
+        forwards run), as :meth:`generate_segment_codes` returns them."""
         timing = self.last_timing = {"decode_steps": 0, "latent_passes": 0}
         stop = self.gpt_cfg.stop_audio_token
         with record_function("genvc.cond_latents"):
             self._cond_latent = self.get_gpt_cond_latents(ref_audio)
         final = []
         for seg, t_real in self._segments(src_wav):
-            with record_function("genvc.prefill"):
-                state, _, _, codes, n_codes = self._start_segment(
-                    seg, [t_real], self._cond_latent)
+            with record_function("genvc.content_codes"):
+                codes, n_code = self.extract_content_codes(seg, t_real)
             with record_function("genvc.decode"):
-                toks, n_gen = engine.decode_all(self.gpt, state, self.sampler,
-                                                self._max_new(n_codes[0]))
-                gen = [int(t) for t in toks[0, : int(n_gen[0])].tolist() if t != stop]
-            timing["decode_steps"] += state.n_generated - 1
+                toks, steps = decode_segment(codes, n_code)
+            timing["decode_steps"] += steps
+            gen = [int(t) for t in toks if t != stop]
             if not gen:
                 continue
             with record_function("genvc.latent_pass"):
-                lat = self._latent_pass(codes, n_codes, [gen], self._cond_latent)
+                lat = self._latent_pass(codes, [n_code], [gen], self._cond_latent)
             timing["latent_passes"] += 1
             final.append(lat[0, : len(gen)])
         if not final:

@@ -31,23 +31,26 @@ def apply_temperature(logits, temperature: float):
     return logits / temperature
 
 
-def apply_top_k(logits, k: int):
+def apply_top_k(logits, k: int, min_tokens_to_keep: int = 1):
+    """HF TopKLogitsWarper; beam_sample passes ``min_tokens_to_keep =
+    2 * num_beams`` so its 2N draws never land on masked candidates."""
     if k <= 0:
         return logits
-    k = min(k, logits.shape[-1])
+    k = min(max(k, min_tokens_to_keep), logits.shape[-1])
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
     return logits.masked_fill(logits < kth, float("-inf"))
 
 
-def apply_top_p(logits, p: float):
+def apply_top_p(logits, p: float, min_tokens_to_keep: int = 1):
     """Keep the smallest set of top tokens whose probability exceeds p (the
-    token crossing the threshold is kept; the top token always is)."""
+    token crossing the threshold is kept; the top ``min_tokens_to_keep``
+    tokens always are)."""
     if p >= 1.0:
         return logits
     sorted_logits = torch.sort(logits, dim=-1).values  # ascending
     cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
     sorted_keep = cum > (1.0 - p)
-    sorted_keep[..., -1] = True
+    sorted_keep[..., -min(max(min_tokens_to_keep, 1), logits.shape[-1]):] = True
     cutoff = torch.where(sorted_keep, sorted_logits,
                          torch.full_like(sorted_logits, float("inf")))
     cutoff = cutoff.min(dim=-1, keepdim=True).values

@@ -237,12 +237,37 @@ def test_torch_synthesize_streaming_batch_matches_jax(pipes):
     assert all(v is not None and v > 0 for v in latencies) and rtf > 0
 
 
-def test_torch_offline_modes_not_ported_raise(pipes):
+SEARCH_MODES = [{"num_beams": 2}, {"num_beams": 4, "num_beam_groups": 2},
+                {"penalty_alpha": 0.6}]
+
+
+@pytest.mark.parametrize("mode", SEARCH_MODES, ids=["beam", "group_beam", "contrastive"])
+def test_torch_synthesize_search_modes_match_jax(pipes, mode):
+    """Offline conversion through beam, group beam and contrastive search
+    (one segment): same length as the JAX package's, waveform within atol
+    1e-3; the latent pass ran once and ``decode_steps`` counts forwards."""
+    jp, tp = pipes
+    (src,), (ref,) = _utterances(11, [1.5])
+    want = jp.synthesize(src, ref, **mode)
+    got = tp.synthesize(src, ref, **mode)
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert tp.last_timing["latent_passes"] == 1
+    assert 0 < tp.last_timing["decode_steps"] <= tp._max_new(tp._host_n_codes(24000))
+
+
+def test_torch_offline_search_modes_run(pipes):
+    """``synthesize`` with ``num_beams=2`` and with ``penalty_alpha=0.6`` (and
+    beam_sample) returns finite audio; group beam search with
+    ``beam_do_sample`` raises, as in the JAX package."""
     _, tp = pipes
     (src,), (ref,) = _utterances(23, [1.0])
-    for kw in ({"num_beams": 2}, {"penalty_alpha": 0.6}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tp.synthesize(src, ref, **kw)
+    for kw in ({"num_beams": 2}, {"penalty_alpha": 0.6},
+               {"num_beams": 2, "beam_do_sample": True}):
+        wav = tp.synthesize(src, ref, **kw)
+        assert wav.ndim == 1 and wav.size > 0 and np.isfinite(wav).all()
+    with pytest.raises(ValueError, match="deterministic"):
+        tp.synthesize(src, ref, num_beams=4, num_beam_groups=2, beam_do_sample=True)
 
 
 def test_torch_infer_cli_offline_and_batch(bundle, tmp_path):
@@ -274,10 +299,26 @@ def test_torch_infer_cli_offline_and_batch(bundle, tmp_path):
         assert sr == 24000 and audio.shape[1] > 0
 
 
-@pytest.mark.parametrize("flags,item", [(["--num_beams", "2"], "A10"),
-                                        (["--num_beam_groups", "2"], "A10"),
-                                        (["--penalty_alpha", "0.6"], "A10"),
-                                        (["--serve", "4"], "A11"),  # needs --src_wavs --streaming
+@pytest.mark.parametrize("flags", [["--num_beams", "2"],
+                                   ["--num_beams", "4", "--num_beam_groups", "2"],
+                                   ["--penalty_alpha", "0.6"]],
+                         ids=["beam", "group_beam", "contrastive"])
+def test_torch_infer_cli_search_modes(bundle, tmp_path, flags):
+    """The CLI's offline search flags write 24 kHz audio."""
+    from genvc_tpu_torch import infer
+    from genvc_tpu_torch.dsp.audio_io import read_wav, write_wav
+
+    rng = np.random.default_rng(9)
+    src, ref, out = (str(tmp_path / n) for n in ("src.wav", "ref.wav", "out.wav"))
+    write_wav(src, (rng.standard_normal(24000) * 0.1).astype(np.float32), 24000)
+    write_wav(ref, (rng.standard_normal(24000) * 0.1).astype(np.float32), 24000)
+    assert infer.main(["--model_path", bundle, "--src_wav", src, "--ref_audio", ref,
+                       "--output_path", out, "--top_k", "1", "--device", "cpu"] + flags) == 0
+    audio, sr = read_wav(out)
+    assert sr == 24000 and audio.shape[1] > 0
+
+
+@pytest.mark.parametrize("flags,item", [(["--serve", "4"], "A11"),  # needs --src_wavs --streaming
                                         (["--quantize", "int8"], "A9")])
 def test_torch_infer_cli_refuses_modes_not_ported(flags, item, capsys):
     from genvc_tpu_torch import infer
