@@ -25,12 +25,20 @@ the cache by parent beam) at the flagship cache of 4 beams, bf16 and e4m3:
 rows bit-equal to their parents', K1 on the reordered cache against its
 plain version, and its device time against its byte bound.
 
-Phase 2 runs a small f32 configuration on the card and on the CPU with the
-same weights: streaming, offline ``synthesize``, ``synthesize_batch`` and a
-2-slot ``StreamServer`` (three streams, one arriving mid-flight), and
-offline beam search (3 beams), group beam search (4 beams, 2 groups) and
-contrastive search (4 candidates) must give the same lengths and audio
-within 1e-3; beam_sample (3 beams) with one noise sequence handed to both
+Phase 2 holds the int8 product of the quantized linears (``ops.quant``:
+``torch._int_mm`` on the card) to its exact CPU version at the decode rows
+(1, 8, 16) and beyond, and at the heads' widths (1026, 258): int8 weights,
+activations and int32 accumulators equal, outputs within 1e-6; and times one
+block's four int8 products against bf16 ``torch.matmul`` at m = 1, 8, 16 and
+a prefill's 115 rows. K1 with an f32 GPT's queries over an e4m3 cache (hd 16
+and 256) must lie within ``bf16_rounding_bound`` of f32 attention over the
+widened cache, the CPU engine's path. It then runs a small f32 configuration on the card and
+on the CPU with the same weights: streaming, offline ``synthesize``,
+``synthesize_batch`` and a 2-slot ``StreamServer`` (three streams, one
+arriving mid-flight), offline beam search (3 beams), group beam search (4
+beams, 2 groups) and contrastive search (4 candidates), and streaming with
+int8 linears and with an fp8 cache (K1 on the card) must give the same
+lengths and audio within 1e-3; beam_sample (3 beams) with one noise sequence handed to both
 the same tokens; two GPT training steps (K4 / K5 / K6 on the card) must
 give the same codes, losses, gradient norms and parameters.
 
@@ -49,6 +57,18 @@ kernels of each path were launched as often as the path says: K1 30 times
 per lockstep decode step (a search's forward at B = beams or candidates),
 K4 30 times per latent pass, K3 30 times per per-row decode step of the
 server (and the others not at all there).
+
+Phase 3b builds the quantized serving configuration at flagship width (bf16
+GPT, ``quantize="int8"``, ``kv_cache_dtype="fp8"``) from the same weights:
+its GPT's weight bytes beside the bf16 GPT's, prefill logits within 0.05
+relative of the bf16 pipeline's, one decode step's device time and kernel
+launches in both, then ``synthesize_streaming`` (3 runs after a warm-up),
+``synthesize`` on the 7.68 s source (1 run) and the 16-stream drain into 8
+slots (1 drain after ``warmup_admission``), each checked as in phase 3 (K1
+on the e4m3 cache 30 per lockstep step, K3 30 per per-row step, K4 30 per
+latent pass) and with the int8 product launched 4 x 30 + 1 times per
+forward (4 x 30 per latent pass); its RTF, latency and drain RTF are
+printed beside phase 3's.
 
 Phase 4 trains the GPT at flagship width (stage 3, bf16 on f32 masters,
 attention kernels K4 forward, K5 / K6 backward) through
@@ -144,7 +164,7 @@ def time_ms(fn, iters=200, warmup=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=50, warmup=5, tries=5):
+def device_ms(fn, iters=50, warmup=5, tries=5, same_per_call=True):
     """Device time of one call of ``fn``: the summed durations of the CUDA
     kernels its calls launch, traced with ``torch.profiler`` over ``iters``
     calls, and the kernels launched per call. ``time_ms`` over a loop of
@@ -153,9 +173,11 @@ def device_ms(fn, iters=50, warmup=5, tries=5):
 
     The tracer now and then loses device records (one run kept 14 of 100).
     A trace counts only if it holds a device record for every launch the
-    host made (the ``*LaunchKernel*`` runtime calls it traced) and the same
-    number for each call; else it is taken again, up to ``tries`` times, and
-    then the time is not measured (None, None)."""
+    host made (the ``*LaunchKernel*`` runtime calls it traced) and, with
+    ``same_per_call``, the same number for each call; else it is taken again,
+    up to ``tries`` times, and then the time is not measured (None, None).
+    Without ``same_per_call`` (a decode step, whose copies vary from call to
+    call) the second number is the host's kernel launches per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -170,8 +192,9 @@ def device_ms(fn, iters=50, warmup=5, tries=5):
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
         n_launch = sum(1 for ev in events if ev.device_type != torch.autograd.DeviceType.CUDA
                        and "LaunchKernel" in ev.name)
-        if spans and len(spans) >= n_launch and len(spans) % iters == 0:
-            return sum(tr.end - tr.start for tr in spans) / iters / 1e3, len(spans) // iters
+        if spans and len(spans) >= n_launch and (not same_per_call or len(spans) % iters == 0):
+            per_call = len(spans) // iters if same_per_call else n_launch / iters
+            return sum(tr.end - tr.start for tr in spans) / iters / 1e3, per_call
         print(f"device_ms: the trace held {len(spans)} device records for {n_launch} "
               f"launches in {iters} calls: taken again", flush=True)
     print(f"device_ms: no complete trace in {tries} tries: not measured", flush=True)
@@ -725,6 +748,83 @@ def ptxas_summary(log):
     return out
 
 
+# (m, k, n): one row (streaming), 8 and 16 rows (the server's slots), 40 (a
+# prefill's rows); the block widths and the heads' 1026 and 258
+Q8_CASES = [(1, 1024, 3072), (8, 1024, 3072), (16, 1024, 1024), (40, 4096, 1024),
+            (1, 1024, 1026), (16, 1024, 1026), (40, 1024, 258)]
+# one block's four projections: c_attn, attn c_proj, c_fc, mlp c_proj
+BLOCK_LINEARS = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+
+
+def check_int8_linear(quant, gpu):
+    """The int8 product of ``ops.quant`` on the card against its CPU version:
+    int8 weights / scales and activations equal, int32 accumulators equal,
+    ``linear_q8`` outputs within 1e-6 relative (the same IEEE steps in the
+    same order), f32 and bf16 inputs; each card product one ``_int_mm``.
+    Then one block's four products at m = 1, 8, 16 and 115 rows (a prefill):
+    ``linear_q8`` (activation quantization, the int8 product, the rescale)
+    and the bare ``_int_mm`` against bf16 ``x @ w``, device ms, CUDA launches
+    per call and the int8 weights' byte bound."""
+    g = torch.Generator().manual_seed(7)
+    worst = 0.0
+    for m, k, n in Q8_CASES:
+        w, b = torch.randn(k, n, generator=g) * 0.03, torch.randn(n, generator=g)
+        cpu = quant.QLinear.from_float(w, b)
+        card = quant.QLinear.from_float(w.cuda(), b.cuda())
+        if not (torch.equal(card.w_q.cpu(), cpu.w_q) and torch.equal(card.scale.cpu(), cpu.scale)):
+            raise AssertionError(f"int8 weights differ between card and CPU at {m, k, n}")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(m, k, generator=g) * 3).to(dtype)
+            x_q, _ = quant.quantize_rows(x)
+            x_qc, _ = quant.quantize_rows(x.cuda())
+            quant.int8_matmul.launches = 0
+            acc_c = quant.int8_matmul(x_qc, card.w_q)
+            if quant.int8_matmul.launches != 1:
+                raise AssertionError("int8_matmul did not launch _int_mm")
+            y, y_c = cpu(x).float(), card(x.cuda()).float().cpu()
+            rel = float((y_c - y).abs().max() / y.abs().max())
+            worst = max(worst, rel)
+            if (not torch.equal(x_qc.cpu(), x_q)
+                    or not torch.equal(acc_c.cpu(), quant.int8_matmul_plain(x_q, cpu.w_q))
+                    or rel > 1e-6):
+                raise AssertionError(f"linear_q8 card vs CPU at {m, k, n} {dtype}: rel {rel}")
+    print(f"int8 linear card vs CPU: {len(Q8_CASES)} shapes x f32 / bf16, int8 "
+          f"activations and int32 accumulators equal, max rel err {worst:.3g} (tol 1e-6)",
+          flush=True)
+    wb = [torch.randn(k, n, device="cuda") * 0.03 for k, n in BLOCK_LINEARS]
+    q = [quant.QLinear.from_float(w, torch.zeros(w.shape[1], device="cuda")) for w in wb]
+    wb = [w.to(torch.bfloat16) for w in wb]
+    weight_bytes = sum(k * n for k, n in BLOCK_LINEARS)
+    rec = {"block_linears": BLOCK_LINEARS, "int8_weight_bytes": weight_bytes, "rows": {},
+           "gpu": gpu}
+    for m in (1, 8, 16, 115):
+        xs = [torch.randn(m, k, device="cuda", dtype=torch.bfloat16) for k, _ in BLOCK_LINEARS]
+        xq = [quant.quantize_rows(x)[0] for x in xs]
+
+        def q8():
+            return [lin(x) for lin, x in zip(q, xs)]
+
+        def int_mm():
+            return [quant.int8_matmul(a, lin.w_q) for lin, a in zip(q, xq)]
+
+        def bf16():
+            return [x @ w for x, w in zip(xs, wb)]
+
+        ops = 2 * m * weight_bytes
+        bound = max(weight_bytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3
+        bound_bf16 = max(2 * weight_bytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
+        row = {}
+        for name, fn in (("linear_q8", q8), ("int_mm", int_mm), ("bf16_matmul", bf16)):
+            dev, per_call = device_ms(fn)
+            row[name] = {"ms": time_ms(fn), "device_ms": dev, "cuda_launches": per_call}
+        row["int8_bound_ms"], row["bf16_bound_ms"] = bound, bound_bf16
+        row["device_ratio_q8_vs_bf16"] = ratio(row["linear_q8"]["device_ms"],
+                                               row["bf16_matmul"]["device_ms"])
+        rec["rows"][m] = row
+    print("int8_product " + json.dumps(rec), flush=True)
+
+
 def small_config(pipeline):
     cfg = pipeline.flagship_config()
     ma = cfg.model_args
@@ -763,15 +863,50 @@ def beam_sample_tokens(pipe, engine, seg, ref, noise, nb=3):
     return buf[:n].tolist()
 
 
-def check_small_against_cpu(pipeline, engine, server_cls, fa, src, ref, ref16):
+def check_f32_query_over_e4m3(da):
+    """An f32 GPT's decode attention over an e4m3 cache: K1 on the card
+    rounds q and the probabilities to bf16, where the CPU engine (as the JAX
+    package off the TPU) attends in f32 over the cache widened by
+    ``from_e4m3``. At the small configuration's head dim (16) and the
+    flagship's (256), one masked overflow code among the keys, every element
+    of K1's output must lie within ``da.bf16_rounding_bound`` of the f32
+    attention on the same card inputs."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for hd in (16, 256):
+        b, h, t = 3, 4, 384
+        q = torch.randn(b, h, hd, generator=g, device="cuda") * 0.3
+        kv = [torch.randn(2, b, h, t, hd, generator=g, device="cuda") * 2 for _ in range(2)]
+        kv[1][1, 2, 0, 300, :4] = 1e4  # past row 2's 97 keys
+        ck, cv = (da.to_cache(x, torch.float8_e4m3fn) for x in kv)
+        lens = torch.tensor([t, 1, 97], device="cuda")
+        bias = torch.where(torch.arange(t, device="cuda")[None] < lens[:, None], 0.0, -1e9)
+        got = da.decode_attention_layer(q, ck, cv, bias, 1)
+        k, v = (da.widen(c[1], torch.float32) for c in (ck, cv))
+        want = torch.softmax(torch.einsum("bhd,bhtd->bht", q, k) / hd ** 0.5
+                             + bias[:, None], -1)
+        want = torch.einsum("bht,bhtd->bhd", want, v)
+        bound = da.bf16_rounding_bound(q, ck, cv, bias, 1)
+        err = (got - want).abs()
+        worst = float((err / bound.clamp_min(1e-30)).max())  # a zero v: err 0
+        print(f"K1, f32 q over e4m3 (hd {hd}) vs f32 attention: max |err| "
+              f"{float(err.max()):.3g}, largest share of the bf16 rounding bound {worst:.3g}",
+              flush=True)
+        if not torch.isfinite(got).all() or worst > 1:
+            raise AssertionError(f"K1 with f32 q (hd {hd}) outside the bf16 rounding bound")
+
+
+def check_small_against_cpu(pipeline, engine, server_cls, da, fa, quant, src, ref, ref16):
     """A small f32 configuration (hd = 16) on the card vs the same weights on
     the CPU: greedy streaming, offline, batch (two rows of different lengths),
     a 2-slot server (first window 4, three streams, the third arriving after
     the first step), and offline beam (3 beams), group beam (4 beams, 2
-    groups) and contrastive search (4 candidates) give the same lengths and
-    audio within 1e-3; beam_sample (3 beams) with one noise sequence, drawn
-    on the CPU from a seeded generator and handed to both, the same
-    tokens."""
+    groups) and contrastive search (4 candidates), and streaming with int8
+    linears (``_int_mm`` on the card) and with an fp8 cache (K1 on the card,
+    which rounds q and the probabilities to bf16; f32 attention over the
+    widened cache on the CPU, as the JAX package off the TPU) give the same
+    lengths and audio within 1e-3; beam_sample (3 beams) with one noise
+    sequence, drawn on the CPU from a seeded generator and handed to both,
+    the same tokens."""
     cfg = small_config(pipeline)
     tree = pipeline.random_tree(cfg, seed=1, device="cpu", contentvec_layers=2)
     seg = src[:, :24000]
@@ -808,11 +943,22 @@ def check_small_against_cpu(pipeline, engine, server_cls, fa, src, ref, ref16):
                     and fa.flash_attention.launches == 0):
                 raise AssertionError(f"small-config {name}: the flash kernel never ran")
         tokens[dev] = beam_sample_tokens(pipe, engine, seg, ref, noise)
+        for name, kw in (("int8_streaming", {"quantize": "int8"}),
+                         ("fp8_streaming", {"kv_cache_dtype": "fp8"})):
+            pipe = pipeline.build_pipeline(tree, cfg, device=dev, dtype=torch.float32, **kw)
+            pipe.gen_cap_tokens_per_code = 1.0
+            quant.int8_matmul.launches = da.decode_attention_layer.launches = 0
+            outs[name, dev] = runs["streaming"](pipe)
+            if dev == "cuda" and name == "int8_streaming" and quant.int8_matmul.launches == 0:
+                raise AssertionError("small-config int8 streaming: _int_mm never ran")
+            if (dev == "cuda" and name == "fp8_streaming"
+                    and da.decode_attention_layer.launches == 0):
+                raise AssertionError("small-config fp8 streaming: K1 never ran")
     print(f"small f32 config beam_sample, card vs CPU: {len(tokens['cuda'])} vs "
           f"{len(tokens['cpu'])} tokens, equal {tokens['cuda'] == tokens['cpu']}", flush=True)
     if tokens["cuda"] != tokens["cpu"] or len(tokens["cpu"]) < 2:
         raise AssertionError("small-config beam_sample tokens differ between card and CPU")
-    for name in runs:
+    for name in list(runs) + ["int8_streaming", "fp8_streaming"]:
         for a, b in zip(outs[name, "cpu"], outs[name, "cuda"]):
             err = float(abs(a - b).max()) if a.shape == b.shape and a.size else None
             print(f"small f32 config {name}, card vs CPU: samples {b.shape[0]} vs "
@@ -835,9 +981,12 @@ class Launches:
     before it, read just after."""
 
     def __init__(self, da, fa):
-        self.da, self.fa = da, fa
+        from genvc_tpu_torch.ops import quant
+
+        self.da, self.fa, self.quant = da, fa, quant
 
     def __enter__(self):
+        self.quant.int8_matmul.launches = 0
         self.da.decode_attention_layer.launches = 0
         self.da.decode_attention_update_layer.launches = 0
         self.fa.flash_attention.launches = 0
@@ -851,12 +1000,13 @@ class Launches:
         self.k4 = self.fa.flash_attention.launches
         self.k5 = self.fa.flash_attention_dq.launches
         self.k6 = self.fa.flash_attention_dkdv.launches
+        self.q8 = self.quant.int8_matmul.launches
         return False
 
     def counts(self):
         return {"decode_attention_layer": self.k1, "decode_attention_update_layer": self.k3,
                 "flash_attention": self.k4, "flash_attention_dq": self.k5,
-                "flash_attention_dkdv": self.k6}
+                "flash_attention_dkdv": self.k6, "int8_matmul": self.q8}
 
 
 def expect(name, got, want):
@@ -871,6 +1021,22 @@ def expect_none(path, n, kernels):
             raise AssertionError(f"{path}: {k.upper()} launched {getattr(n, k)} times")
 
 
+def expect_int8(name, n, layers, forwards, latent_passes=0):
+    """A quantized path: ``_int_mm`` ran for every int8 linear of every
+    forward (4 per block and the mel head; a prefill is one forward) and
+    latent pass (4 per block), with at least one prefill beside the decode
+    forwards; a bf16 path (``layers`` None): never."""
+    if layers is None:
+        if n.q8:
+            raise AssertionError(f"{name}: the int8 product ran {n.q8} times")
+        return
+    per_forward = 4 * layers + 1
+    rest = n.q8 - per_forward * forwards - 4 * layers * latent_passes
+    if rest <= 0 or rest % per_forward:
+        raise AssertionError(f"{name}: {n.q8} int8 products for {forwards} forwards and "
+                             f"{latent_passes} latent passes")
+
+
 def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
     """``StreamServer(pipe, slots=8)`` with its defaults (first window 4,
     waves of up to 4, 2 ticks in flight) drains all streams, submitted at
@@ -878,12 +1044,15 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
     aggregate RTF (wall time over the total source), first-audio latency
     p50 / p95 from that instant, pool counters and launches. Checks the
     audio, that every stream completed, and that the server launched K3 30
-    times per per-row decode step and neither K1 nor K4. Returns the last
-    drain's launch counts."""
+    times per per-row decode step and neither K1 nor K4, and on a quantized
+    pipeline the int8 product at every forward. Returns the last drain's
+    launch counts and the median aggregate RTF of the drains after the
+    first."""
     import numpy as np
 
     layers = pipe.gpt_cfg.layers
     total_s = sum(s.shape[-1] for s in srcs) / 16000
+    drains = []
     for run in range(runs):
         server = server_cls(pipe, slots=8)
         if run == 0:
@@ -903,6 +1072,7 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
             raise AssertionError(f"serving: {m['completed']} of {len(srcs)} streams completed")
         expect("serving K3", n.k3, layers * m["decode_steps"])
         expect_none("serving", n, ("k1", "k4", "k5", "k6"))
+        expect_int8("serving", n, layers if pipe.quantize else None, m["decode_steps"])
         lat_ms = np.asarray([stats["latency_s"] for _, stats in results]) * 1e3
         print("serving " + json.dumps({
             "run": run, "warm_up": run == 0, "streams": len(srcs), "slots": server.slots,
@@ -912,8 +1082,10 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
             "ticks": m["ticks"], "mean_occupancy": m["mean_occupancy"],
             "admissions": m["admissions"], "decode_steps": m["decode_steps"],
             "k1_launches": n.k1, "k3_launches": n.k3, "k4_launches": n.k4,
-            "gpu": gpu}), flush=True)
-    return n.counts()
+            "int8_launches": n.q8, "quantize": pipe.quantize,
+            "cache": str(pipe.cache_dtype), "gpu": gpu}), flush=True)
+        drains.append(elapsed / total_s)
+    return n.counts(), statistics.median(drains[1:] or drains)
 
 
 def check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder, runs=2):
@@ -972,6 +1144,114 @@ def check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder, runs=2):
             # contrastive search copies one slot a step instead of reordering
             "reorder_device_ms_per_step": None if name == "contrastive"
             else reorder["device_ms"], "gpu": gpu}}), flush=True)
+    return by_path
+
+
+def gpt_weight_bytes(gpt):
+    """Bytes of the GPT's block projections and heads (weights, scales,
+    biases), and of the whole GPT (parameters and buffers)."""
+    def size(mods):
+        return sum(t.numel() * t.element_size() for m in mods
+                   for t in list(m.parameters()) + list(m.buffers()))
+    linears = [lin for blk in gpt.core.blocks for lin in (
+        blk.attn.c_attn, blk.attn.c_proj, blk.mlp.c_fc, blk.mlp.c_proj)]
+    return size(linears + [gpt.mel_head, gpt.text_head]), size([gpt])
+
+
+def decode_step_profile(pipe, engine, gpt_model):
+    """A seeded 75-code prefix: its prefill logits (f32), then one lockstep
+    decode step's device ms and kernel launches (``device_ms`` over 8 steps
+    of a second, prefilled state)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cond = torch.randn(1, 32, pipe.gpt_cfg.model_dim, generator=g, device="cuda") * 0.05
+    codes = torch.randint(0, 256, (1, 80), generator=g, device="cuda")
+    with torch.inference_mode():
+        prefix, valid = gpt_model.build_prefix_emb(pipe.gpt, cond, codes,
+                                                   torch.tensor([75], device="cuda"))
+        states = [engine.init_state(pipe.gpt_cfg, pipe._prefix_width, 1, "cuda",
+                                    cache_dtype=pipe.cache_dtype, generator=pipe.generator,
+                                    gen_tokens=pipe._cache_gen_tokens()) for _ in range(2)]
+        _, logits = engine.prefill_logits(pipe.gpt, states[0], prefix, valid)
+        engine.prefill(pipe.gpt, states[1], prefix, valid, pipe.sampler)
+        step_ms, launches = device_ms(
+            lambda: engine.decode_chunk(pipe.gpt, states[1], pipe.sampler, chunk=1),
+            iters=8, warmup=3, same_per_call=False)
+    return logits.float(), step_ms, launches
+
+
+def check_quantized(pipeline, engine, gpt_model, server_cls, da, fa, gpu, tree, cfg,
+                    bf16_pipe, bf16, src, ref, tiled, serve_srcs, serve_refs):
+    """Phase 3b: the quantized serving configuration (bf16 GPT, int8 linears,
+    e4m3 cache) from phase 3's weights. ``bf16`` holds phase 3's medians
+    (same call) to print beside this arm's. Returns the launch counts of its
+    paths."""
+    t0 = time.perf_counter()
+    pipe = pipeline.build_pipeline(tree, cfg, device="cuda", dtype=torch.bfloat16,
+                                   quantize="int8", kv_cache_dtype="fp8")
+    pipe.gen_cap_tokens_per_code = 1.875
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    layers = pipe.gpt_cfg.layers
+    lq, step_q, launch_q = decode_step_profile(pipe, engine, gpt_model)
+    lb, step_b, launch_b = decode_step_profile(bf16_pipe, engine, gpt_model)
+    rel = float((lq - lb).norm() / lb.norm())
+    (lin_q, all_q), (lin_b, all_b) = gpt_weight_bytes(pipe.gpt), gpt_weight_bytes(bf16_pipe.gpt)
+    print("quantized_build " + json.dumps({
+        "build_s": build_s, "linear_bytes_int8": lin_q, "linear_bytes_bf16": lin_b,
+        "gpt_bytes_int8": all_q, "gpt_bytes_bf16": all_b,
+        "prefill_logits_rel_err_vs_bf16": rel, "tol": 0.05,
+        "decode_step_device_ms": {"int8_fp8": step_q, "bf16": step_b},
+        "decode_step_kernel_launches": {"int8_fp8": launch_q, "bf16": launch_b},
+        "gpu": gpu}), flush=True)
+    if not rel < 0.05:
+        raise AssertionError(f"quantized prefill logits {rel} from the bf16 pipeline's")
+    by_path, arm = {}, {}
+
+    pipe.synthesize_streaming(src, ref, verbose=False)  # warm-up
+    lat, rtf = [], []
+    for run in range(3):
+        with Launches(da, fa) as n:
+            wav, latency, r = pipe.synthesize_streaming(src, ref, verbose=False)
+        steps = pipe.last_timing["decode_steps"]
+        check_audio("quantized streaming", wav, pipe.sample_rate)
+        expect("quantized streaming K1", n.k1, layers * steps)
+        expect_none("quantized streaming", n, ("k3", "k4", "k5", "k6"))
+        expect_int8("quantized streaming", n, layers, steps)
+        lat.append(latency * 1e3)
+        rtf.append(r)
+        print(f"quantized streaming run {run}: {wav.size} samples, first-chunk latency "
+              f"{latency * 1e3:.2f} ms, RTF {r:.4f}, decode steps {steps}, K1 launches "
+              f"{n.k1}, int8 products {n.q8}", flush=True)
+    by_path["quantized_streaming"] = n.counts()
+    arm["streaming_latency_ms_median"] = statistics.median(lat)
+    arm["streaming_rtf_median"] = statistics.median(rtf)
+
+    seconds = tiled.shape[-1] / 16000
+    with Launches(da, fa) as n:
+        t0 = time.perf_counter()
+        wav = pipe.synthesize(tiled, ref)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    timing = pipe.last_timing
+    check_audio("quantized offline", wav, pipe.sample_rate)
+    expect("quantized offline K1", n.k1, layers * timing["decode_steps"])
+    expect("quantized offline K4", n.k4, layers * timing["latent_passes"])
+    expect_none("quantized offline", n, ("k3", "k5", "k6"))
+    expect_int8("quantized offline", n, layers, timing["decode_steps"], timing["latent_passes"])
+    print(f"quantized offline: {seconds:.2f} s source, {wav.size} samples, "
+          f"{elapsed * 1e3:.1f} ms, RTF {elapsed / seconds:.4f}, decode steps "
+          f"{timing['decode_steps']}, K1 launches {n.k1}, K4 launches {n.k4}, int8 "
+          f"products {n.q8}", flush=True)
+    by_path["quantized_offline"] = n.counts()
+    arm["offline_rtf"] = elapsed / seconds
+
+    by_path["quantized_serving"], arm["drain_rtf"] = check_serving(
+        pipe, server_cls, serve_srcs, serve_refs, da, fa, gpu, runs=1)
+    arm["decode_step_kernel_launches"] = launch_q
+    bf16["decode_step_kernel_launches"] = launch_b
+    print("quantized_vs_bf16 " + json.dumps({"int8_fp8": arm, "bf16": bf16, "gpu": gpu}),
+          flush=True)
+    del pipe
     return by_path
 
 
@@ -1227,7 +1507,9 @@ def main() -> int:
     from genvc_tpu_torch.dsp.audio_io import load_audio
     from genvc_tpu_torch.inference import pipeline
     from genvc_tpu_torch.ops import decode_attention as da
+    from genvc_tpu_torch.models import gpt as gpt_model
     from genvc_tpu_torch.ops import flash_attention as fa
+    from genvc_tpu_torch.ops import quant
     from genvc_tpu_torch.serving.server import StreamServer
 
     begin = time.perf_counter()
@@ -1264,15 +1546,17 @@ def main() -> int:
     ref2 = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 24000)
     if any(x is None for x in (src, ref, src2, ref2)):
         raise RuntimeError("could not load the sample wavs")
-    check_small_against_cpu(pipeline, engine, StreamServer, fa, src, ref, src2)
+    check_int8_linear(quant, gpu)
+    check_f32_query_over_e4m3(da)
+    check_small_against_cpu(pipeline, engine, StreamServer, da, fa, quant, src, ref, src2)
     with tempfile.TemporaryDirectory() as tmp:
         check_small_train_against_cpu(da, fa, tmp)
 
     # ---- phase 3: every path at flagship width, bf16
     cfg = pipeline.flagship_config()
     t0 = time.perf_counter()
-    pipe = pipeline.build_pipeline(pipeline.random_tree(cfg, seed=0, device="cuda"),
-                                   cfg, device="cuda", dtype=torch.bfloat16)
+    tree = pipeline.random_tree(cfg, seed=0, device="cuda")
+    pipe = pipeline.build_pipeline(tree, cfg, device="cuda", dtype=torch.bfloat16)
     pipe.gen_cap_tokens_per_code = 1.875
     torch.cuda.synchronize()
     print(f"flagship pipeline built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1295,6 +1579,8 @@ def main() -> int:
               f"{latency * 1e3:.2f} ms, RTF {r:.4f}, decode steps {steps}, "
               f"K1 launches {n.k1}", flush=True)
     by_path["streaming"] = n.counts()
+    bf16 = {"streaming_latency_ms_median": statistics.median(lat),
+            "streaming_rtf_median": statistics.median(rtf)}
     print(json.dumps({"streaming": {"latency_ms_median": statistics.median(lat),
                                     "rtf_median": statistics.median(rtf),
                                     "runs": len(lat), "gpu": gpu}}), flush=True)
@@ -1320,6 +1606,7 @@ def main() -> int:
               f"{timing['decode_steps']}, latent passes {timing['latent_passes']}, "
               f"K1 launches {n.k1}, K4 launches {n.k4}", flush=True)
     by_path["offline"] = n.counts()
+    bf16["offline_rtf_median"] = statistics.median(rtf)
     print(json.dumps({"offline": {"rtf_median": statistics.median(rtf), "runs": len(rtf),
                                   "source_s": seconds, "gpu": gpu}}), flush=True)
 
@@ -1357,9 +1644,14 @@ def main() -> int:
                                  "source_s": total_s, "gpu": gpu}}), flush=True)
     by_path.update(check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder_rec))
     # serving: 16 streams (the batch's 4 sources x 4) into 8 slots at once
-    by_path["serving"] = check_serving(pipe, StreamServer, srcs * 4, [ref, ref2] * 8,
-                                       da, fa, gpu)
-    del pipe
+    by_path["serving"], bf16["drain_rtf_median"] = check_serving(
+        pipe, StreamServer, srcs * 4, [ref, ref2] * 8, da, fa, gpu)
+
+    # ---- phase 3b: the quantized serving configuration at flagship width
+    by_path.update(check_quantized(pipeline, engine, gpt_model, StreamServer, da, fa, gpu,
+                                   tree, cfg, pipe, bf16, src, ref, tiled, srcs * 4,
+                                   [ref, ref2] * 8))
+    del pipe, tree
     torch.cuda.empty_cache()
 
     # ---- phase 4: GPT training at flagship width

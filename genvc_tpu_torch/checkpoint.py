@@ -12,6 +12,11 @@ Convention: linear weights transpose to (in, out); conv weights keep torch
 through unchanged. The port's ``Linear`` keeps (in, out) too, so a tree loads
 without further transposition.
 
+Trees also travel as ``.npz`` bundles (:func:`save_pytree_npz`,
+:func:`load_pytree_npz`: the JAX package's format, a converted bundle beside
+its ``<stem>.config.json``) and go back to reference ``.pth`` bundles
+(:func:`export_bundle`, the inverse of :func:`convert_bundle`).
+
 The second half, :func:`load_jax_tree`, turns such a tree (numpy arrays or
 tensors; layer stacks either stacked on a leading axis or as lists) into the
 port's ``nn.Module``s on a device; :func:`export_tree` is its inverse. The
@@ -22,6 +27,7 @@ training stage's loaders (:func:`load_mel_norms`, :func:`load_contentvec`,
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -30,6 +36,7 @@ from torch import nn
 
 from genvc_tpu_torch.config import GenVCConfig
 from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan
+from genvc_tpu_torch.ops import quant
 
 
 def _np(t):
@@ -373,6 +380,248 @@ def load_gpt(path: str, n_layers: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# .npz bundles: a tree flattened to '/'-joined keys, list entries as "i#"
+# (the JAX package's format; either package reads what the other writes)
+
+
+def save_pytree_npz(path: str, tree: dict) -> None:
+    """Flatten a tree of arrays into an ``.npz`` with '/'-joined keys."""
+    flat = {}
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(prefix + (str(k),), v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(prefix + (str(i) + "#",), v)
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+
+    rec((), tree)
+    np.savez(path, **flat)
+
+
+def load_pytree_npz(path: str) -> dict:
+    """The inverse of :func:`save_pytree_npz`: nested dicts, lists where every
+    key of a level is ``"i#"``."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key, value in data.items():
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = value
+
+    def lists(node):
+        if isinstance(node, dict):
+            if node and all(k.endswith("#") for k in node):
+                return [lists(node[f"{i}#"]) for i in range(len(node))]
+            return {k: lists(v) for k, v in node.items()}
+        return node
+
+    return lists(tree)
+
+
+def load_npz_bundle(path: str) -> dict:
+    """An ``.npz`` bundle and its ``<stem>.config.json`` as one tree, the
+    config dict under ``"config"``."""
+    tree = load_pytree_npz(path)
+    with open(path[:-4] + ".config.json") as f:
+        tree["config"] = json.load(f)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Export: parameter trees -> reference-format ``.pth`` bundles (the inverse of
+# convert_bundle), the reference's state-dict names and its weight_norm
+# (g, v) pairs, so a model trained with the port loads where the reference's
+# model_init loads
+
+
+def _unfold_weight_norm(w, dim: int = 0):
+    """A folded weight as torch ``weight_norm``'s (g, v): v = w and g = ||w||
+    over every axis but ``dim``; folding (g, v) gives w back."""
+    w = np.asarray(w, np.float32)
+    axes = tuple(i for i in range(w.ndim) if i != dim)
+    return np.sqrt(np.sum(w * w, axis=axes, keepdims=True)), w
+
+
+def _put_linear_t(sd, prefix, p):
+    sd[prefix + ".weight"] = np.asarray(p["w"], np.float32).T
+    if "b" in p:
+        sd[prefix + ".bias"] = np.asarray(p["b"], np.float32)
+
+
+def _put_linear_asis(sd, prefix, p):
+    sd[prefix + ".weight"] = np.asarray(p["w"], np.float32)
+    if "b" in p:
+        sd[prefix + ".bias"] = np.asarray(p["b"], np.float32)
+
+
+def _put_ln(sd, prefix, p):
+    sd[prefix + ".weight"] = np.asarray(p["scale"], np.float32)
+    sd[prefix + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
+_put_conv = _put_linear_asis  # conv weights keep torch's (O, I, K) layout
+
+
+def _put_wn_conv(sd, prefix, p, dim: int = 0):
+    """torch ``weight_norm`` keys from a training-form {g, v} leaf or a folded
+    inference-form {w} leaf."""
+    if "g" in p:
+        g, v = np.asarray(p["g"], np.float32), np.asarray(p["v"], np.float32)
+    else:
+        g, v = _unfold_weight_norm(p["w"], dim=dim)
+    sd[prefix + ".weight_g"] = g
+    sd[prefix + ".weight_v"] = v
+    if "b" in p:
+        sd[prefix + ".bias"] = np.asarray(p["b"], np.float32)
+
+
+def _unstack(node) -> list:
+    """A tree of (L, ...) leaves -> a list of L trees; a list as it is."""
+    if isinstance(node, (list, tuple)):
+        return list(node)
+    first = node
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [_take(node, i) for i in range(np.shape(first)[0])]
+
+
+def export_perceiver(params: dict) -> dict:
+    sd: dict = {}
+    _put_linear_t(sd, "proj_context", params["proj_context"])
+    sd["latents"] = np.asarray(params["latents"], np.float32)
+    sd["norm.gamma"] = np.asarray(params["norm"]["gamma"], np.float32)
+    for i, layer in enumerate(_unstack(params["layers"])):
+        a, f = f"layers.{i}.0.", f"layers.{i}.1."
+        _put_linear_t(sd, a + "to_q", layer["to_q"])
+        _put_linear_t(sd, a + "to_kv", layer["to_kv"])
+        _put_linear_t(sd, a + "to_out", layer["to_out"])
+        _put_linear_t(sd, f + "0", layer["ff_in"])
+        _put_linear_t(sd, f + "2", layer["ff_out"])
+    return sd
+
+
+def export_gpt(params: dict) -> dict:
+    """The inverse of :func:`convert_gpt`: keys relative to the bundle's
+    ``gpt.`` module."""
+    sd: dict = {}
+    sd["text_embedding.weight"] = np.asarray(params["text_embedding"], np.float32)
+    sd["mel_embedding.weight"] = np.asarray(params["mel_embedding"], np.float32)
+    sd["text_pos_embedding.emb.weight"] = np.asarray(params["text_pos"], np.float32)
+    sd["mel_pos_embedding.emb.weight"] = np.asarray(params["mel_pos"], np.float32)
+    for i, blk in enumerate(_unstack(params["core"]["blocks"])):
+        p = f"gpt.h.{i}."
+        _put_ln(sd, p + "ln_1", blk["ln_1"])
+        _put_linear_asis(sd, p + "attn.c_attn", blk["attn"]["c_attn"])
+        _put_linear_asis(sd, p + "attn.c_proj", blk["attn"]["c_proj"])
+        _put_ln(sd, p + "ln_2", blk["ln_2"])
+        _put_linear_asis(sd, p + "mlp.c_fc", blk["mlp"]["c_fc"])
+        _put_linear_asis(sd, p + "mlp.c_proj", blk["mlp"]["c_proj"])
+    _put_ln(sd, "gpt.ln_f", params["core"]["ln_f"])
+    _put_ln(sd, "final_norm", params["final_norm"])
+    _put_linear_t(sd, "text_head", params["text_head"])
+    _put_linear_t(sd, "mel_head", params["mel_head"])
+    for k, v in export_perceiver(params["perceiver"]).items():
+        sd["conditioning_perceiver." + k] = v
+    return sd
+
+
+def export_dvae(params: dict) -> dict:
+    sd: dict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    num_layers = len(enc["convs"])
+    num_resnet_blocks = len(enc["resblocks"])
+
+    def put_resblock(prefix, rb):
+        _put_conv(sd, prefix + "net.0", rb["conv1"])
+        _put_conv(sd, prefix + "net.2", rb["conv2"])
+        _put_conv(sd, prefix + "net.4", rb["conv3"])
+
+    for i, c in enumerate(enc["convs"]):
+        _put_conv(sd, f"encoder.{i}.0", c)
+    for j, rb in enumerate(enc["resblocks"]):
+        put_resblock(f"encoder.{num_layers + j}.", rb)
+    _put_conv(sd, f"encoder.{num_layers + num_resnet_blocks}", enc["out"])
+    _put_conv(sd, "decoder.0", dec["inp"])
+    for j, rb in enumerate(dec["resblocks"]):
+        put_resblock(f"decoder.{1 + j}.", rb)
+    for i, c in enumerate(dec["ups"]):
+        _put_conv(sd, f"decoder.{1 + num_resnet_blocks + i}.0.conv", c)
+    _put_conv(sd, f"decoder.{1 + num_resnet_blocks + num_layers}", dec["out"])
+    for k in ("embed", "cluster_size", "embed_avg"):
+        sd["codebook." + k] = np.asarray(params["codebook"][k], np.float32)
+    return sd
+
+
+def export_hifigan(params: dict) -> dict:
+    """From the training form ({g, v, b} leaves) or the folded inference form
+    ({w, b}); torch weight_norm keys either way."""
+    sd: dict = {}
+    _put_wn_conv(sd, "conv_pre", params["conv_pre"])
+    for i, u in enumerate(params["ups"]):
+        _put_wn_conv(sd, f"ups.{i}", u)
+    for i, rb in enumerate(params["resblocks"]):
+        for j, c in enumerate(rb["convs"]):
+            _put_wn_conv(sd, f"resblocks.{i}.convs.{j}", c)
+    _put_wn_conv(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def export_contentvec(params: dict) -> dict:
+    sd: dict = {}
+    for i, layer in enumerate(params["feature_extractor"]):
+        p = f"feature_extractor.conv_layers.{i}."
+        _put_conv(sd, p + "0", layer["conv"])
+        if "norm" in layer:
+            sd[p + "2.weight"] = np.asarray(layer["norm"]["scale"], np.float32)
+            sd[p + "2.bias"] = np.asarray(layer["norm"]["bias"], np.float32)
+    _put_linear_t(sd, "post_extract_proj", params["post_extract_proj"])
+    # fairseq's pos_conv is weight_norm(dim=2)
+    g, v = _unfold_weight_norm(params["pos_conv"]["w"], dim=2)
+    sd["encoder.pos_conv.0.weight_g"] = g
+    sd["encoder.pos_conv.0.weight_v"] = v
+    sd["encoder.pos_conv.0.bias"] = np.asarray(params["pos_conv"]["b"], np.float32)
+    _put_ln(sd, "layer_norm", params["pre_ln"])
+    _put_ln(sd, "encoder.layer_norm", params["encoder_ln"])
+    for i, layer in enumerate(_unstack(params["layers"])):
+        p = f"encoder.layers.{i}."
+        _put_linear_t(sd, p + "self_attn.q_proj", layer["attn"]["q"])
+        _put_linear_t(sd, p + "self_attn.k_proj", layer["attn"]["k"])
+        _put_linear_t(sd, p + "self_attn.v_proj", layer["attn"]["v"])
+        _put_linear_t(sd, p + "self_attn.out_proj", layer["attn"]["out"])
+        _put_ln(sd, p + "self_attn_layer_norm", layer["attn_ln"])
+        _put_linear_t(sd, p + "fc1", layer["fc1"])
+        _put_linear_t(sd, p + "fc2", layer["fc2"])
+        _put_ln(sd, p + "final_layer_norm", layer["final_ln"])
+    _put_linear_t(sd, "final_proj", params["final_proj"])
+    return sd
+
+
+def export_bundle(tree: dict, path: str) -> None:
+    """The inverse of :func:`convert_bundle`: write ``{'model': state_dict,
+    'config': dict}`` with each family of ``tree`` (gpt, hifigan,
+    acoustic_dvae, content_dvae, contentvec) under the reference's composed
+    prefixes and the config dict as it is. A bundle with only some families
+    doubles as the reference's stage checkpoints, whose trainers strip the
+    family prefix."""
+    sd: dict = {}
+    families = (("gpt", "gpt.", export_gpt), ("hifigan", "hifigan.", export_hifigan),
+                ("acoustic_dvae", "acoustic_dvae.", export_dvae),
+                ("content_dvae", "content_dvae.", export_dvae),
+                ("contentvec", "content_extractor.model.", export_contentvec))
+    for name, prefix, export in families:
+        if tree.get(name) is not None:
+            sd.update((prefix + k, v) for k, v in export(tree[name]).items())
+    model = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    torch.save({"model": model, "config": tree.get("config")}, path)
+
+
+# ---------------------------------------------------------------------------
 # Parameter tree <-> modules
 
 
@@ -469,14 +718,20 @@ def export_tree(module: nn.Module) -> dict:
 
 
 def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",
-                  dtype=torch.float32) -> Modules:
+                  dtype=torch.float32, quantize: str | None = None) -> Modules:
     """Build the port's modules from a parameter tree in the JAX package's
     layout (``genvc_tpu.checkpoint.convert_bundle`` output, this module's own
-    :func:`convert_bundle`, or the ``init_tree`` functions).
+    :func:`convert_bundle` or :func:`load_pytree_npz`, or the ``init_tree``
+    functions).
 
     ``dtype=torch.bfloat16`` casts the GPT (Perceiver included) to bf16 and
     keeps its ``final_norm`` in f32; HiFi-GAN, ContentVec and the content
-    dVAE stay f32 — the JAX ``build_pipeline``'s choice."""
+    dVAE stay f32 — the JAX ``build_pipeline``'s choice. ``quantize="int8"``
+    then swaps int8 linears (``ops.quant``) in for the GPT's block
+    projections and heads, quantized from the tree's f32 weights, and keeps
+    the core's LayerNorms in f32, as ``build_pipeline`` does."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}; supported: 'int8'")
     with torch.device("meta"):
         mods = Modules(
             gpt=gpt_model.GPT(gpt_config(cfg)),
@@ -494,6 +749,8 @@ def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",
         mods.gpt.to(dtype)
         assign(mods.gpt.final_norm, tree["gpt"]["final_norm"], device,
                "gpt.final_norm")
+    if quantize is not None:  # from the f32 tree, not the casts
+        quant.quantize_gpt(mods.gpt, tree["gpt"])
     for m in (mods.gpt, mods.hifigan, mods.content_dvae, mods.contentvec):
         m.eval()
     return mods

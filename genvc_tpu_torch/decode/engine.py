@@ -24,15 +24,18 @@ Semantics kept from the reference decode path: the t-th AR input sits at mel
 position t; the latent paired with token t is ``final_norm`` of the post-ln_f
 hidden at the position that generated t; finished rows emit the stop token.
 
-Cached attention (``_attend_cached``): a bf16 or fp8 cache is read by a
-hand-written CUDA kernel of ``ops.decode_attention`` (its plain PyTorch
-version on CPU tensors): ``decode_attention_layer`` after the lockstep
-cache write, ``decode_attention_update_layer`` (which writes each row's K/V
-itself) per row. An f32 cache takes the plain ``nn.attention`` path, because
-the kernels compute in bf16 and would change f32 decode numerics — the same
-gate the JAX engine applies; a numerics choice, not a fallback. Every
-write to an fp8 cache goes through ``da.to_cache`` (the JAX package's e4m3
-rounding, overflow stored as 0x7F / 0xFF).
+Cached attention (``_attend_cached``): on the card every bf16 or fp8 cache
+is read by a hand-written CUDA kernel of ``ops.decode_attention``:
+``decode_attention_layer`` after the lockstep cache write,
+``decode_attention_update_layer`` (which writes each row's K/V itself) per
+row. On CPU tensors a bf16 GPT takes the kernels' plain PyTorch versions,
+and an f32 GPT attends in f32 over the cache widened by ``da.widen``, as
+the JAX engine does off the TPU (the kernels round q and the probabilities
+to bf16, so an f32 GPT's card result differs from it by that rounding). An
+f32 cache takes the plain ``nn.attention`` path everywhere, as in the JAX
+engine: a numerics choice, not a fallback. Every write to an fp8 cache goes
+through ``da.to_cache`` (the JAX package's e4m3 rounding, overflow stored as
+0x7F / 0xFF); every read takes those codes as +-480.
 """
 
 from __future__ import annotations
@@ -107,6 +110,14 @@ def init_state(cfg: gpt_model.GPTConfig, prefix_width: int, batch: int,
         generator=generator)
 
 
+def _kernel_reads(cache, q) -> bool:
+    """Whether K1 / K3 read ``cache`` for ``q``: every bf16 or e4m3 cache on
+    the card; on CPU tensors only a bf16 GPT's, since an f32 GPT attends in
+    f32 there, as the JAX engine does off the TPU."""
+    return cache.dtype != torch.float32 and (q.dtype == torch.bfloat16
+                                             or q.device.type != "cpu")
+
+
 def _attend_cached(block: gpt_model.Block, h, state: DecodeState, layer_idx: int,
                    bias2, heads: int):
     """One block forward for a single token: write its K/V at
@@ -116,7 +127,7 @@ def _attend_cached(block: gpt_model.Block, h, state: DecodeState, layer_idx: int
     b = h.shape[0]
     hd = h.shape[-1] // heads
     q, k, v = (a.reshape(b, heads, hd) for a in (q, k, v))
-    fused = state.cache_k.dtype != torch.float32
+    fused = _kernel_reads(state.cache_k, q)
     if state.per_row and fused:  # the kernel writes each row's K/V itself
         out = da.decode_attention_update_layer(q, k, v, state.cache_k, state.cache_v,
                                                bias2, state.cur_index, layer_idx)
@@ -132,8 +143,7 @@ def _attend_cached(block: gpt_model.Block, h, state: DecodeState, layer_idx: int
             out = da.decode_attention_layer(q, state.cache_k, state.cache_v, bias2,
                                             layer_idx)
         else:
-            ck = state.cache_k[layer_idx].to(q.dtype)
-            cv = state.cache_v[layer_idx].to(q.dtype)
+            ck, cv = (da.widen(c[layer_idx], q.dtype) for c in (state.cache_k, state.cache_v))
             out = tnn.attention(q[:, :, None], ck, cv,
                                 bias=tnn.key_padding_bias(state.key_valid))[:, :, 0]
     h = h + block.attn.c_proj(out.reshape(b, 1, heads * hd))

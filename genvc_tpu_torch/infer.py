@@ -5,7 +5,7 @@ Usage:
         --src_wav samples/EF4_ENG_0112_1.wav \
         --ref_audio samples/EM1_ENG_0037_1.wav \
         --output_path out.wav [--streaming] [--top_k 1] [--bf16] \
-        [--kv_cache fp8] [--seed 0] [--device cuda]
+        [--quantize int8] [--kv_cache fp8] [--seed 0] [--device cuda]
 
     # offline search modes (single utterance, without --streaming)
     ... --num_beams 4 [--length_penalty 1.0] [--beam_do_sample]
@@ -24,8 +24,12 @@ Without ``--streaming`` the conversion is offline (``synthesize`` /
 RTF and the pool's counters). The search flags (``--num_beams``,
 ``--num_beam_groups``, ``--penalty_alpha`` and their options) act on the
 offline conversion of one utterance; streaming and batch ignore them, as in
-the JAX package. ``--quantize`` (not ported yet), and ``--serve`` without
-``--src_wavs --streaming``, exit with code 2.
+the JAX package. ``--quantize int8`` runs the GPT's block projections and
+heads as int8 W8A8 linears; with ``--kv_cache fp8`` (and ``--bf16``) it is
+the recommended serving configuration, on every mode above. ``--model_path``
+takes a reference ``.pth`` bundle or a converted ``.npz`` bundle (beside its
+``<stem>.config.json``; ``python -m genvc_tpu_torch.tools.convert_checkpoint``).
+``--serve`` without ``--src_wavs --streaming`` exits with code 2.
 """
 
 from __future__ import annotations
@@ -34,15 +38,6 @@ import argparse
 import dataclasses
 import os
 import sys
-
-# flags of modes the port does not have yet, and --serve without the mode it
-# serves: (test on the parsed args, message)
-_NOT_PORTED = [
-    (lambda a: a.serve > 0 and not (a.src_wavs and a.streaming),
-     "--serve SLOTS takes effect with --src_wavs and --streaming (the "
-     "StreamServer, ROADMAP A11)"),
-    (lambda a: a.quantize is not None, "--quantize is not ported yet (ROADMAP A9)"),
-]
 
 
 def main(argv=None) -> int:
@@ -83,13 +78,14 @@ def main(argv=None) -> int:
     parser.add_argument("--serve", type=int, default=0, metavar="SLOTS",
                         help="with --src_wavs --streaming: convert through a "
                              "continuous-batching StreamServer of SLOTS decode slots")
-    parser.add_argument("--quantize", type=str, default=None, choices=["int8"])
+    parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                        help="int8 W8A8 GPT linears")
     args = parser.parse_args(argv)
 
-    for not_ported, message in _NOT_PORTED:
-        if not_ported(args):
-            print(message, file=sys.stderr)
-            return 2
+    if args.serve > 0 and not (args.src_wavs and args.streaming):
+        print("--serve SLOTS takes effect with --src_wavs and --streaming (the "
+              "StreamServer, ROADMAP A11)", file=sys.stderr)
+        return 2
     if not os.path.exists(args.model_path):
         print(f"model checkpoint not found: {args.model_path}", file=sys.stderr)
         return 1
@@ -101,7 +97,8 @@ def main(argv=None) -> int:
 
     pipe = model_init(args.model_path, device=args.device,
                       dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                      seed=args.seed, kv_cache_dtype=args.kv_cache)
+                      seed=args.seed, quantize=args.quantize,
+                      kv_cache_dtype=args.kv_cache)
     # top_k is the main quality knob; greedy (top_k=1) is preferred for
     # streaming (reference README.md:52)
     pipe.sampler = dataclasses.replace(pipe.sampler, top_k=args.top_k)

@@ -1,6 +1,8 @@
-"""Voice conversion, streaming and offline (``genvc_tpu/inference/pipeline.py``
-without the quantized modes; the serving pool is
-``serving.server.StreamServer``, built on ``stream_chunk_batch`` here).
+"""Voice conversion, streaming and offline (``genvc_tpu/inference/pipeline.py``;
+the serving pool is ``serving.server.StreamServer``, built on
+``stream_chunk_batch`` here). ``model_init(..., quantize="int8",
+kv_cache_dtype="fp8")`` builds the quantized serving configuration: int8
+W8A8 GPT linears (``ops.quant``) and an e4m3 KV cache.
 
 The chain: resample the source to 16 kHz; ContentVec -> content-dVAE codes
 per 6 s segment; Perceiver speaker latents from the reference's mel; GPT
@@ -38,7 +40,8 @@ import torch
 from torch.profiler import record_function
 
 from genvc_tpu_torch import resolve_device
-from genvc_tpu_torch.checkpoint import Modules, convert_bundle, load_jax_tree
+from genvc_tpu_torch.checkpoint import (Modules, convert_bundle, load_jax_tree,
+                                        load_npz_bundle)
 from genvc_tpu_torch.config import GenVCConfig
 from genvc_tpu_torch.decode import engine
 from genvc_tpu_torch.dsp import mel as mel_mod
@@ -65,9 +68,11 @@ def _bucket(n: int, step: int = LATENT_BUCKET) -> int:
 
 class GenVCPipeline:
     def __init__(self, config: GenVCConfig, modules: Modules, mel_norms,
-                 device, seed: int = 0, kv_cache_dtype: str | None = None):
+                 device, seed: int = 0, quantize: str | None = None,
+                 kv_cache_dtype: str | None = None):
         self.config = config
         self.device = device
+        self.quantize = quantize  # None | "int8": the modules' GPT linears
         self.gpt = modules.gpt
         self.gpt_cfg = modules.gpt.cfg
         self.hifigan = modules.hifigan
@@ -686,23 +691,29 @@ def _handle_chunk(wav_gen: np.ndarray, wav_overlap, overlap_len: int):
 
 
 def model_init(checkpoint_path: str, device="cuda", dtype=torch.float32,
-               seed: int = 0, kv_cache_dtype: str | None = None) -> GenVCPipeline:
-    """Load a reference-format ``.pth`` bundle and build the pipeline.
-    ``dtype=torch.bfloat16`` runs the GPT in bf16; ``kv_cache_dtype="fp8"``
-    stores the KV cache as float8_e4m3."""
-    tree = convert_bundle(checkpoint_path)
+               seed: int = 0, quantize: str | None = None,
+               kv_cache_dtype: str | None = None) -> GenVCPipeline:
+    """Load a reference-format ``.pth`` bundle, or a converted ``.npz`` bundle
+    with its ``<stem>.config.json``, and build the pipeline.
+    ``dtype=torch.bfloat16`` runs the GPT in bf16; ``quantize="int8"`` runs
+    its block projections and heads as int8 W8A8 linears (``ops.quant``);
+    ``kv_cache_dtype="fp8"`` stores the KV cache as float8_e4m3."""
+    if checkpoint_path.endswith(".npz"):
+        tree = load_npz_bundle(checkpoint_path)
+    else:
+        tree = convert_bundle(checkpoint_path)
     cfg = GenVCConfig.from_dict(tree["config"] or {})
     return build_pipeline(tree, cfg, device=device, dtype=dtype, seed=seed,
-                          kv_cache_dtype=kv_cache_dtype)
+                          quantize=quantize, kv_cache_dtype=kv_cache_dtype)
 
 
 def build_pipeline(tree: dict, cfg: GenVCConfig, device="cuda",
-                   dtype=torch.float32, seed: int = 0,
+                   dtype=torch.float32, seed: int = 0, quantize: str | None = None,
                    kv_cache_dtype: str | None = None) -> GenVCPipeline:
     dev = resolve_device(device)
-    mods = load_jax_tree(tree, cfg, dev, dtype)
+    mods = load_jax_tree(tree, cfg, dev, dtype, quantize=quantize)
     return GenVCPipeline(cfg, mods, _load_mel_norms(cfg, dev), dev, seed=seed,
-                         kv_cache_dtype=kv_cache_dtype)
+                         quantize=quantize, kv_cache_dtype=kv_cache_dtype)
 
 
 def flagship_config() -> GenVCConfig:

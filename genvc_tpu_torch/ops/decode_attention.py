@@ -88,9 +88,10 @@ def to_cache(x, dtype):
     return to_e4m3(x) if dtype == _F8 else x.to(dtype)
 
 
-def widen(cache):
-    """A cache's values in bf16 (the kernels' operand type)."""
-    return from_e4m3(cache) if cache.dtype == _F8 else cache.to(torch.bfloat16)
+def widen(cache, dtype=torch.bfloat16):
+    """A cache's values in ``dtype`` (by default bf16, the kernels' operand
+    type); an e4m3 cache through :func:`from_e4m3`."""
+    return (from_e4m3(cache) if cache.dtype == _F8 else cache).to(dtype)
 
 
 def decode_attention_layer_plain(q, cache_k, cache_v, bias, layer_idx):
@@ -105,6 +106,28 @@ def decode_attention_layer_plain(q, cache_k, cache_v, bias, layer_idx):
     probs = torch.softmax(logits, dim=-1).to(torch.bfloat16).float()
     out = torch.einsum("bht,bhtd->bhd", probs, v)
     return out.to(q.dtype)
+
+
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
+
+
+def bf16_rounding_bound(q, cache_k, cache_v, bias, layer_idx):
+    """Per (B, H, hd) element, how far the kernels' result for an f32 ``q``
+    can lie from f32 attention over the same widened cache, from their two
+    bf16 roundings (unit roundoff u = 2^-8). Rounding q moves logit j by at
+    most d_j = u * sum_i |q_i k_ji| / sqrt(hd), so every probability by a
+    factor within exp(+-2 d), d the largest d_j; rounding the probabilities
+    adds a factor within 1 +- u. So |out - ref| <= max_j |v_j| * ((1 + u)
+    exp(2 d) - 1), over the keys whose bias is above -1e4 (a masked key's
+    -1e9 gives it probability 0 on both sides), with a relative 1e-6 of |v|
+    for the f32 sums."""
+    u = BF16_UNIT_ROUNDOFF
+    keys = (bias.float() > -1e4)[:, None, :, None]      # (B, 1, T, 1)
+    k = torch.where(keys, widen(cache_k[layer_idx]).float().abs(), 0.0)
+    vmax = torch.where(keys, widen(cache_v[layer_idx]).float().abs(), 0.0).amax(-2)
+    d = torch.einsum("bhd,bhtd->bht", q.float().abs(), k).amax(-1, keepdim=True)
+    d = d * (u / math.sqrt(q.shape[-1]))
+    return vmax * ((1 + u) * torch.exp(2 * d) - 1 + 1e-6)
 
 
 def decode_attention_plain(q, k_cache, v_cache, bias):

@@ -318,13 +318,41 @@ def test_torch_infer_cli_search_modes(bundle, tmp_path, flags):
     assert sr == 24000 and audio.shape[1] > 0
 
 
-@pytest.mark.parametrize("flags,item", [(["--serve", "4"], "A11"),  # needs --src_wavs --streaming
-                                        (["--quantize", "int8"], "A9")])
+@pytest.mark.parametrize("flags,item", [(["--serve", "4"], "A11")])  # needs --src_wavs --streaming
 def test_torch_infer_cli_refuses_modes_not_ported(flags, item, capsys):
     from genvc_tpu_torch import infer
 
     assert infer.main(flags) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["offline", "streaming", "batch", "serve"])
+def test_torch_infer_cli_quantized(bundle, tmp_path, mode):
+    """``--quantize int8 --kv_cache fp8`` (the quantized serving
+    configuration) converts offline, streamed, as a batch and through the
+    StreamServer, and writes 24 kHz audio."""
+    from genvc_tpu_torch import infer
+    from genvc_tpu_torch.dsp.audio_io import read_wav, write_wav
+
+    rng = np.random.default_rng(10)
+    src, src2, ref = (str(tmp_path / f"{n}.wav") for n in ("src", "src2", "ref"))
+    for path in (src, src2, ref):
+        write_wav(path, (rng.standard_normal(24000) * 0.1).astype(np.float32), 24000)
+    args = ["--model_path", bundle, "--ref_audio", ref, "--top_k", "1", "--device", "cpu",
+            "--quantize", "int8", "--kv_cache", "fp8"]
+    out = str(tmp_path / "out.wav")
+    if mode in ("offline", "streaming"):
+        args += ["--src_wav", src, "--output_path", out]
+        outs = [out]
+    else:
+        outs = [str(tmp_path / "out_0.wav"), str(tmp_path / "out_1.wav")]
+        args += ["--src_wavs", src, src2, "--output_path", out]
+    args += {"offline": [], "streaming": ["--streaming"], "batch": [],
+             "serve": ["--streaming", "--serve", "2"]}[mode]
+    assert infer.main(args) == 0
+    for path in outs:
+        audio, sr = read_wav(path)
+        assert sr == 24000 and audio.shape[1] > 0 and np.isfinite(audio).all()
 
 
 def test_torch_infer_cli_serve(bundle, tmp_path, capsys):
