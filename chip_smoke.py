@@ -45,14 +45,14 @@ give the same codes, losses, gradient norms and parameters.
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
 256 ch; default HiFi-GAN) with seeded random weights on the repo's sample
-wavs: ``synthesize_streaming`` (5 runs), ``synthesize`` on a 7.68 s source
-(two segments; 3 runs), ``synthesize_batch`` / ``synthesize_streaming_batch``
+wavs: ``synthesize_streaming`` (3 runs), ``synthesize`` on a 7.68 s source
+(two segments; 2 runs), ``synthesize_batch`` / ``synthesize_streaming_batch``
 with 4 utterances (2 runs each), each after one warm-up, and a ``StreamServer``
-of 8 slots draining 16 streams submitted at once (one warm-up drain, 2 timed);
+of 8 slots draining 16 streams submitted at once (one warm-up drain, 1 timed);
 and on the 1.54 s source offline beam search and beam_sample (4 beams), group
 beam search (4 beams, 2 groups), contrastive search (4 candidates) and, at
 the engine level, constrained beam search (4 beams, one two-token phrase),
-each once to warm up and twice timed. It checks the audio and that the
+each once to warm up and once timed. It checks the audio and that the
 kernels of each path were launched as often as the path says: K1 30 times
 per lockstep decode step (a search's forward at B = beams or candidates),
 K4 30 times per latent pass, K3 30 times per per-row decode step of the
@@ -78,6 +78,22 @@ K3 = 0), a checkpoint written and resumed for one more step; then, on one
 fixed batch, steps timed with a device sync (losses must fall), the same
 step with ``attn_impl="xla"`` in turns with the kernels', and one step at the
 recipe's B = 24 with 100-token texts for peak memory.
+
+Phase 5 trains the other stages. A small f32 configuration runs one GAN step
+(four discriminator families at their smallest filters; K4 on the card) and
+one dVAE step on the card and on the CPU: losses, parameters, spectral-norm
+buffers and the EMA codebook must agree. K4 is held to its plain version at
+the vocoder stage's latent pass (the frozen f32 GPT, B = 64, T = 64) and
+timed beside masked SDPA. Stage 4 then runs at the recipe's full width
+through ``train.runner.run_vocoder_training`` (``train_vocoder``'s config:
+batch 64 of 0.64 s segments, all four families at ``VocoderConfig()``, a
+seeded 30 x 1024 GPT written through ``export_gpt``): 1 warm-up and 4 timed
+steps and a checkpoint (K4 = 30 a step, K1 = K3 = K5 = K6 = 0), then steps
+on one fixed batch timed to a device sync and two traced for device busy
+time and launches; and stages 1 and 2 at their recipes through
+``run_vae_training`` (batch 256 of 6 s mel crops; batch 64 of 6 s crops
+through the 12-layer ContentVec), 3 steps and a checkpoint each, then fixed-
+batch steps with peak memory.
 
 Prints measurements on earlier lines, the kernel table as one JSON line, the
 GPU's name and power limit, and as the last line
@@ -164,7 +180,7 @@ def time_ms(fn, iters=200, warmup=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=50, warmup=5, tries=5, same_per_call=True):
+def device_ms(fn, iters=50, warmup=5, tries=3, same_per_call=True):
     """Device time of one call of ``fn``: the summed durations of the CUDA
     kernels its calls launch, traced with ``torch.profiler`` over ``iters``
     calls, and the kernels launched per call. ``time_ms`` over a loop of
@@ -1037,7 +1053,7 @@ def expect_int8(name, n, layers, forwards, latent_passes=0):
                              f"{latent_passes} latent passes")
 
 
-def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
+def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=2):
     """``StreamServer(pipe, slots=8)`` with its defaults (first window 4,
     waves of up to 4, 2 ticks in flight) drains all streams, submitted at
     one instant; run 0 (after ``warmup_admission``) warms up. Per drain:
@@ -1088,7 +1104,7 @@ def check_serving(pipe, server_cls, srcs, refs, da, fa, gpu, runs=3):
     return n.counts(), statistics.median(drains[1:] or drains)
 
 
-def check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder, runs=2):
+def check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder, runs=1):
     """Offline beam search (4 beams), beam_sample (4), group beam search (4
     beams, 2 groups) and contrastive search (4 candidates) through
     ``synthesize``, and constrained beam search (4 beams, one two-token
@@ -1375,7 +1391,7 @@ def write_training_assets(tmp):
     return paths, meta
 
 
-def check_training(da, fa, tmp, gpu):
+def check_training(da, fa, tmp, gpu, paths, meta):
     """Phase 4: GPT training at flagship width through the runner, then steps
     on one fixed batch. Returns the runner run's launch counts."""
     import random
@@ -1386,8 +1402,6 @@ def check_training(da, fa, tmp, gpu):
     from genvc_tpu_torch.train import gpt_stage, runner
     from genvc_tpu_torch.train_genVC import recipe_config
 
-    t0 = time.perf_counter()
-    paths, meta = write_training_assets(tmp)
     cfg = recipe_config(meta, meta, os.path.join(HERE, "pre_trained", "mel_stats.npy"),
                         paths["acoustic_dvae"], paths["content_dvae"], paths["contentvec"],
                         output_path=os.path.join(tmp, "exp"), batch_size=8, num_workers=4)
@@ -1395,7 +1409,6 @@ def check_training(da, fa, tmp, gpu):
     ma.min_text_length = ma.max_text_length = 50
     cfg.print_step = 1
     layers, steps, b, text_len = ma.gpt_layers, 6, cfg.batch_size, 50
-    print(f"training assets written in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the entry point: 1 warm-up + 5 timed steps, a checkpoint at the end
     torch.cuda.reset_peak_memory_stats()
@@ -1496,6 +1509,400 @@ def check_training(da, fa, tmp, gpu):
     return counts
 
 
+
+# ---- phase 5: dVAE training (stages 1-2) and the HiFi-GAN GAN (stage 4)
+
+VOC_PARAM_TOL = 4e-6   # 2 % of the 2e-4 one step of lr 2e-4 can move a parameter
+VAE_PARAM_TOL = 2e-6   # 2 % of one step of lr 1e-4
+STAGE_LOSS_TOL = 1e-4  # relative: f32 on both sides, TF32 off, sums in other orders
+
+
+def check_small_stages_against_cpu(da, fa, tmp):
+    """One GAN step (all four families at the smallest filters, the synthetic
+    2 x 64 GPT frozen, K4 on the card) and one dVAE step (mel features) of a
+    small f32 configuration on the card and on the CPU from the same weights
+    and batch, Adam's eps 1e-3 (see tests/test_torch_train.py). Losses within
+    STAGE_LOSS_TOL relative; parameters within VOC_PARAM_TOL / VAE_PARAM_TOL;
+    the spectral-norm buffers and the EMA codebook within 1e-5 relative."""
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch import config, resolve_device
+    from genvc_tpu_torch.models import dvae, gpt as gpt_model, hifigan
+    from genvc_tpu_torch.testing_synthetic import write_stage_ckpts
+    from genvc_tpu_torch.train import gpt_stage, optim, vae_stage, vocoder_stage
+
+    paths = write_stage_ckpts(os.path.join(tmp, "small5"))
+    cfg = config.GenVCConfig()
+    for c, ch, nt in ((cfg.acoustic_dvae_config, 80, 64), (cfg.content_dvae_config, 256, 36)):
+        c.num_channels, c.num_tokens, c.hidden_dim, c.codebook_dim = ch, nt, 16, 24
+        c.num_resnet_blocks = 3
+    vcfg = config.VocoderConfig(input_feat_dim=64, upsample_initial_channel=16,
+                                msstftd_filters=4, mssbcqtd_filters=4,
+                                mssbcqtd_hop_lengths=[512], mssbcqtd_n_octavess=[5],
+                                mssbcqtd_bins_per_octave=[12])
+    gcfg = gpt_model.GPTConfig(layers=2, model_dim=64, heads=4)
+    gen_tree = hifigan.generator_to_weight_norm(
+        hifigan.init_tree(torch.Generator().manual_seed(4), vcfg))
+    disc_tree = ckpt.export_tree(vocoder_stage.init_discriminators(
+        torch.Generator().manual_seed(5), vcfg))
+    dcfg = dvae.DVAEConfig(channels=80, num_tokens=32, codebook_dim=16, hidden_dim=8,
+                           num_resnet_blocks=1)
+    vae_tree = dvae.init_tree(torch.Generator().manual_seed(6), dcfg, trainable=True)
+    rng = np.random.default_rng(0)
+    wav = (rng.standard_normal((2, 1, 2 * 1920)) * 0.1).astype(np.float32)
+    wav[1, :, 1920:] = 0
+    batch = {"wav": wav, "wav_lengths": np.asarray([2 * 1920, 1920]),
+             "conditioning": (rng.standard_normal((2, 1, 1, 24000)) * 0.1).astype(np.float32),
+             "cond_lens": np.asarray([24000, 18000]), "text_lengths": np.asarray([2, 1])}
+    vae_wav = (rng.standard_normal((2, 1, 12000)) * 0.1).astype(np.float32)
+    vae_cfg = config.VAEConfig(num_channels=80, num_tokens=32, codebook_dim=16, hidden_dim=8,
+                               num_resnet_blocks=1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        dev = resolve_device(dev)
+        frozen = gpt_stage.make_frozen(cfg, _stage_trees(paths), np.ones(80, np.float32), dev)
+        with torch.device("meta"):
+            gpt = gpt_model.GPT(gcfg)
+            generator = hifigan.Generator(vcfg, weight_norm=True)
+            discs = hifigan.Discriminators(vcfg)
+            vae = dvae.DVAE(dcfg, trainable=True)
+        ckpt.assign(gpt, ckpt.load_gpt(paths["gpt"], gcfg.layers), dev)
+        ckpt.assign(generator, gen_tree, dev)
+        ckpt.assign(discs, disc_tree, dev)
+        ckpt.assign(vae, vae_tree, dev)
+        gp, dp, vp = (optim.FlatParams(m) for m in (generator, discs, vae))
+        gen_opt, disc_opt = (optim.AdamW(2e-4, (0.8, 0.99), 1e-3, 0.01, None).init(p.flat)
+                             for p in (gp, dp))
+        state = vocoder_stage.VocoderTrainState(generator, discs, gp, dp, gen_opt, disc_opt)
+        step, _ = vocoder_stage.make_train_step(vcfg)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        latents, _ = vocoder_stage.prepare_vocoder_batch(frozen, gpt.eval(), tb)
+        with Launches(da, fa) as n:
+            state, m = step(state, tb, frozen, gpt)
+        vstate = vae_stage.VAETrainState(
+            vae, vp, optim.AdamW(1e-4, (0.5, 0.9), 1e-3, 0.0, 0.5).init(vp.flat))
+        vstep, _ = vae_stage.make_train_step(vae_stage.make_feature_fn(vae_cfg))
+        vstate, vm = vstep(vstate, {"wav": torch.from_numpy(vae_wav).to(dev)},
+                           torch.ones(80, device=dev))
+        runs[dev.type] = ({k: float(v) for k, v in m.items()} | {
+            f"vae_{k}": float(v) for k, v in vm.items()}, latents.cpu().numpy(),
+            ckpt.export_tree(generator), ckpt.export_tree(discs), ckpt.export_tree(vae), n)
+    (mc, lc, gc, dc, vc, _), (mg, lg, gg, dg, vg, ng) = runs["cpu"], runs["cuda"]
+    if ng.k4 != gcfg.layers or ng.k5 or ng.k6:
+        raise AssertionError(f"small GAN step: K4/K5/K6 launched {ng.k4}/{ng.k5}/{ng.k6} "
+                             f"times, expected {gcfg.layers}/0/0")
+    worst = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    if worst > STAGE_LOSS_TOL:
+        raise AssertionError(f"small stages: losses {mg} on the card vs {mc}")
+
+    def leaves(t, prefix=""):
+        for k_, v_ in t.items():
+            if isinstance(v_, dict):
+                yield from leaves(v_, f"{prefix}{k_}.")
+            elif isinstance(v_, list):
+                yield from leaves(dict(enumerate(v_)), f"{prefix}{k_}.")
+            else:
+                yield f"{prefix}{k_}", v_
+
+    errs = {}
+    for name, a, b, tol in (("generator", gg, gc, VOC_PARAM_TOL),
+                            ("discriminators", dg, dc, VOC_PARAM_TOL),
+                            ("dvae", vg, vc, VAE_PARAM_TOL)):
+        a, b = dict(leaves(a)), dict(leaves(b))
+        buf = {k for k in a if k.rsplit(".", 1)[-1] in ("u", "pv", "embed", "cluster_size",
+                                                      "embed_avg")}
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in a if k not in buf)
+        rel = max((float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30))
+                   for k in buf), default=0.0)
+        if err > tol or rel > 1e-5:
+            raise AssertionError(f"small stages: {name} parameters differ by {err} "
+                                 f"(tol {tol}), buffers by {rel} relative (tol 1e-5)")
+        errs[name] = (err, rel)
+    lat_err = float(np.abs(lg - lc).max())
+    if lat_err > 1e-5:
+        raise AssertionError(f"small GAN step: latents differ by {lat_err}")
+    print("small f32 stages, card vs CPU: GAN step losses "
+          f"{[mg[k] for k in ('loss_disc', 'loss_gen', 'mel_loss')]} vs "
+          f"{[mc[k] for k in ('loss_disc', 'loss_gen', 'mel_loss')]}, dVAE step "
+          f"{mg['vae_loss']} vs {mc['vae_loss']}, max rel loss err {worst:.2e} "
+          f"(tol {STAGE_LOSS_TOL}), latents {lat_err:.2e} (tol 1e-5), |param err| / rel "
+          f"buffer err {json.dumps({k: [f'{e:.2e}', f'{r:.2e}'] for k, (e, r) in errs.items()})} "
+          f"(tol {VOC_PARAM_TOL} / {VAE_PARAM_TOL}, 1e-5), K4 launches {ng.k4}", flush=True)
+
+
+def vocoder_recipe(tmp, paths, meta, steps):
+    """``train_vocoder``'s recipe over the training assets (a metafile of
+    64 x ``steps`` lines) with a flagship GPT (30 x 1024, 4 heads; seeded,
+    written through ``export_gpt``), and (B, T) of the frozen GPT's latent
+    pass under it: 32 conditioning latents, the 8-token text with start and
+    stop, the audio codes with their pad of 4 and start and stop."""
+    import random
+
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch.models import gpt as gpt_model
+    from genvc_tpu_torch.train import gpt_stage, runner
+    from genvc_tpu_torch.train_vocoder import recipe_config
+
+    gpt_path = os.path.join(tmp, "gpt_flagship.pth")
+    gcfg = gpt_model.GPTConfig(layers=30, model_dim=1024, heads=4)
+    sd = ckpt.export_gpt(gpt_model.init_tree(torch.Generator().manual_seed(11), gcfg))
+    torch.save({"model": {"gpt." + k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in sd.items()}, "config": {}}, gpt_path)
+    del sd
+    vmeta = _repeat_meta(meta, os.path.join(tmp, "voc.txt"), 64 * steps)
+    cfg = recipe_config(vmeta, vmeta, os.path.join(HERE, "pre_trained", "mel_stats.npy"),
+                        paths["acoustic_dvae"], paths["content_dvae"], paths["contentvec"],
+                        gpt_path, output_path=os.path.join(tmp, "exp_voc"), num_workers=8)
+    cfg.print_step = 1
+    frozen = gpt_stage.make_frozen(cfg, _stage_trees(paths), np.ones(80, np.float32),
+                                   torch.device("cuda"))
+    train_ds, _ = runner.datasets(cfg)
+    batch = runner.to_device(train_ds.collate(list(range(cfg.batch_size)), random.Random(0)),
+                             "cuda")
+    feats = gpt_stage.prepare_features(frozen, batch)
+    t = 32 + feats["text_inputs"].shape[1] + 2 + feats["audio_codes"].shape[1] + 2
+    return cfg, (cfg.batch_size, t)
+
+
+def check_flash_vocoder_shape(fa, b, t):
+    """K4 at the vocoder stage's latent pass (the frozen f32 GPT: B = 64, T as
+    the recipe gives it, the last key column masked as the pass masks it for
+    these lengths) against its plain version; kernel, plain version and
+    masked SDPA times, device times and the bound (bytes over 3.35 TB/s or
+    f32 operations over 67 TFLOP/s)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    h, hd, dt = 4, 256, torch.float32
+    q, k, v, valid = flash_inputs(b, t, hd, dt, 0, seed=500)
+    valid[:, t - 1:] = False
+    got_o, got_lse = fa.flash_attention_fwd(q, k, v, valid, None, True)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, valid, None, True)
+    err_o = (got_o - want_o).abs()
+    err_lse = float((got_lse - want_lse).abs().max())
+    tol = FLASH_TOL[dt]
+    if not bool((err_o <= tol + tol * want_o.abs()).all()) or err_lse > LSE_TOL:
+        raise AssertionError(f"flash_attention at the vocoder shape B={b} T={t}: max |err| "
+                             f"O {float(err_o.max())}, LSE {err_lse}")
+    mask = valid[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    n_bytes = 4 * b * h * t * hd * 4 + b * h * t * 4 + b * t
+    flops = 2 * b * h * t * (t + 1) * hd
+    dev, _ = device_ms(lambda: fa.flash_attention_fwd(q, k, v, valid, None, True))
+    lib_dev, _ = device_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    rec = {"B": b, "T": t, "hd": hd, "dtype": "float32", "max_abs_err": float(err_o.max()),
+           "max_abs_err_lse": err_lse, "tol": tol,
+           "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, valid, None, True)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, valid, None, True),
+                               iters=50),
+           "library_ms": time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+           "device_ms": dev, "library_device_ms": lib_dev, "device_ratio": ratio(dev, lib_dev),
+           "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+           "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+           else "operations", "bytes": n_bytes, "flops": flops}
+    print("flash_attention vocoder shape " + json.dumps(rec), flush=True)
+    return rec
+
+
+def device_busy_ms(fn, iters=2):
+    """Device busy time of one call of ``fn`` in a ``torch.profiler`` trace
+    of ``iters`` calls: the union of its kernels' time ranges (kernels of one
+    call may overlap, so their summed durations can exceed the wall time),
+    the summed durations, and the host's kernel launches, each per call."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    n_launch = sum(1 for ev in events if ev.device_type != torch.autograd.DeviceType.CUDA
+                   and "LaunchKernel" in ev.name)
+    return (busy / iters / 1e3, sum(b - a for a, b in spans) / iters / 1e3,
+            n_launch / iters)
+
+
+def _repeat_meta(meta, path, lines):
+    """A metafile of ``lines`` lines cycling over ``meta``'s wavs."""
+    with open(meta) as f:
+        rows = f.read().splitlines()
+    with open(path, "w") as f:
+        f.write("\n".join(rows[i % len(rows)] for i in range(lines)) + "\n")
+    return path
+
+
+def _timed_steps(step, n_timed):
+    """1 warm-up and ``n_timed`` steps, each timed to a device sync."""
+    out = []
+    for i in range(1 + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        if i:
+            out.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {float(loss)}")
+    return out
+
+
+VOCODER_STEPS = 5  # 1 warm-up + 4 timed
+
+
+def check_vocoder_training(da, fa, cfg, paths, gpu, t_latent):
+    """Phase 5a: the HiFi-GAN GAN step (stage 4) at the recipe's full width
+    through ``run_vocoder_training`` (``vocoder_recipe``): batch 64 of
+    8-token (0.64 s) segments, all four discriminator families at
+    ``VocoderConfig()``, the 30 x 1024 frozen GPT, f32 with TF32 off; 1
+    warm-up and 4 timed steps, then a checkpoint; K4 = 30 a step (the latent
+    pass), K1 = K3 = K5 = K6 = 0. Then one fixed batch: steps timed to a
+    device sync and two traced for device time and launches. Returns the
+    runner run's launch counts."""
+    import random
+
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch.models import gpt as gpt_model, hifigan
+    from genvc_tpu_torch.train import gpt_stage, runner, vocoder_stage
+
+    steps = VOCODER_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(da, fa) as n:
+        t0 = time.perf_counter()
+        state = runner.run_vocoder_training(cfg, max_steps=steps, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect("vocoder K4", n.k4, 30 * steps)
+    expect_none("vocoder", n, ("k1", "k3", "k5", "k6"))
+    counts = n.counts()
+    with open(os.path.join(cfg.output_path, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    step_ms = [1e3 / r["steps_per_sec"] for r in log]
+    if len(log) != steps or not all(np.isfinite([r["loss_gen"] for r in log])):
+        raise AssertionError(f"vocoder: {len(log)} logged steps: {log}")
+    if not os.path.exists(os.path.join(cfg.output_path, "ckpt", f"{steps}.pt")):
+        raise AssertionError("vocoder: no checkpoint at the last step")
+
+    # one fixed batch: steps timed to a device sync, one traced
+    frozen = gpt_stage.make_frozen(cfg, _stage_trees(paths),
+                                   ckpt.load_mel_norms(cfg.model_args.mel_norm_file),
+                                   torch.device("cuda"))
+    with torch.device("meta"):
+        gpt = gpt_model.GPT(ckpt.gpt_config(cfg))
+    ckpt.assign(gpt, ckpt.load_gpt(cfg.model_args.gpt_checkpoint, 30), "cuda")
+    train_ds, _ = runner.datasets(cfg)
+    batch = runner.to_device(train_ds.collate(list(range(64)), random.Random(0)), "cuda")
+    step, _ = vocoder_stage.make_train_step(cfg.vocoder_config)
+
+    def one():
+        nonlocal state
+        state, m = step(state, batch, frozen, gpt.eval())
+        return m["loss_gen"]
+
+    fixed_ms = _timed_steps(one, 3)
+    busy_ms, summed_ms, launches = device_busy_ms(one)
+    latents, wav = vocoder_stage.prepare_vocoder_batch(frozen, gpt, batch)
+    rec = {"batch": 64, "segment_s": wav.shape[-1] / 24000, "latents": list(latents.shape),
+           "latent_pass_T": t_latent, "families": list(hifigan.ALL_FAMILIES),
+           "dtype": "f32, TF32 off", "runner_steps": steps, "runner_wall_s": wall,
+           "runner_step_ms": step_ms, "runner_step_ms_median_timed": statistics.median(
+               step_ms[1:]), "runner_step_ms_min_max_timed": [min(step_ms[1:]), max(step_ms[1:])],
+           "fixed_batch_step_ms": fixed_ms, "fixed_batch_step_ms_median":
+           statistics.median(fixed_ms), "device_busy_ms_per_step": busy_ms,
+           "kernel_ms_summed_per_step": summed_ms, "launches_per_step": launches,
+           "k4_launches_per_step": n.k4 / steps,
+           "max_memory_allocated": peak, "losses": [r["loss_gen"] for r in log],
+           "launches": counts, "gpu": gpu}
+    print("vocoder training " + json.dumps(rec), flush=True)
+    return counts
+
+
+def check_dvae_training(da, fa, tmp, gpu, paths, meta):
+    """Phase 5c: both dVAE stages at their recipes through
+    ``run_vae_training`` (stage 1: batch 256 of 6 s crops at 24 kHz, mel
+    features; stage 2: batch 64 of 6 s crops at 16 kHz through the 12-layer
+    ContentVec), 3 steps each and a checkpoint, then 1 warm-up and 3 steps
+    on a fixed batch timed to a device sync, with peak memory. No attention
+    kernel runs here. Returns the runs' launch counts."""
+    import random
+
+    from genvc_tpu_torch.data.dataset import WaveformDVAEDataset
+    from genvc_tpu_torch.train import runner, vae_stage
+    from genvc_tpu_torch.train_audio_dvae import recipe_config as audio_recipe
+    from genvc_tpu_torch.train_content_dvae import recipe_config as content_recipe
+
+    recs, total = {}, None
+    for name, make in (("audio", lambda m: audio_recipe(
+                            m, m, os.path.join(HERE, "pre_trained", "mel_stats.npy"),
+                            output_path=os.path.join(tmp, "exp_advae"), num_workers=8)),
+                       ("content", lambda m: content_recipe(
+                            m, m, paths["contentvec"],
+                            output_path=os.path.join(tmp, "exp_cdvae"), num_workers=8))):
+        probe = make("")
+        steps = 3
+        cfg = make(_repeat_meta(meta, os.path.join(tmp, f"{name}.txt"),
+                                probe.batch_size * steps))
+        torch.cuda.reset_peak_memory_stats()
+        with Launches(da, fa) as n:
+            t0 = time.perf_counter()
+            state = runner.run_vae_training(cfg, max_steps=steps, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        expect_none(f"dvae {name}", n, ("k1", "k3", "k4", "k5", "k6"))
+        if not os.path.exists(os.path.join(cfg.output_path, "ckpt", f"{steps}.pt")):
+            raise AssertionError(f"dvae {name}: no checkpoint at the last step")
+        total = n.counts() if total is None else {k: total[k] + v for k, v in
+                                                   n.counts().items()}
+        ds = WaveformDVAEDataset(cfg.train_metafile, False, cfg.audio.dvae_sample_rate,
+                                 cfg.max_wav_len)
+        batch = runner.to_device(ds.collate(list(range(cfg.batch_size)), random.Random(0)),
+                                 "cuda")
+        if cfg.feat_type == "Mel-spectrogram":
+            feat_params = torch.ones(80, device="cuda")
+        else:
+            from genvc_tpu_torch import checkpoint as ckpt
+            from genvc_tpu_torch.models import contentvec
+
+            with torch.device("meta"):
+                feat_params = contentvec.ContentVec(n_layers=12)
+            ckpt.assign(feat_params, ckpt.load_contentvec(paths["contentvec"]), "cuda")
+            feat_params.eval()
+        step, _ = vae_stage.make_train_step(vae_stage.make_feature_fn(cfg))
+
+        def one():
+            nonlocal state
+            state, m = step(state, batch, feat_params)
+            return m["loss"]
+
+        torch.cuda.reset_peak_memory_stats()
+        fixed_ms = _timed_steps(one, 3)
+        recs[name] = {"batch": cfg.batch_size, "crop_s": batch["wav"].shape[-1]
+                      / cfg.audio.dvae_sample_rate, "feat_type": cfg.feat_type,
+                      "channels": cfg.num_channels, "tokens": cfg.num_tokens,
+                      "runner_steps": steps, "runner_wall_s": wall,
+                      "fixed_batch_step_ms": fixed_ms,
+                      "step_ms_median": statistics.median(fixed_ms),
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(), "gpu": gpu}
+        del state
+        torch.cuda.empty_cache()
+    print("dvae training " + json.dumps(recs), flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1566,7 +1973,7 @@ def main() -> int:
     # streaming, one utterance
     pipe.synthesize_streaming(src, ref, verbose=False)  # warm-up (cuDNN plans)
     lat, rtf = [], []
-    for run in range(5):
+    for run in range(3):
         with Launches(da, fa) as n:
             wav, latency, r = pipe.synthesize_streaming(src, ref, verbose=False)
         steps = pipe.last_timing["decode_steps"]
@@ -1590,7 +1997,7 @@ def main() -> int:
     seconds = tiled.shape[-1] / 16000
     pipe.synthesize(tiled, ref)  # warm-up
     rtf = []
-    for run in range(3):
+    for run in range(2):
         with Launches(da, fa) as n:
             t0 = time.perf_counter()
             wav = pipe.synthesize(tiled, ref)
@@ -1656,7 +2063,19 @@ def main() -> int:
 
     # ---- phase 4: GPT training at flagship width
     with tempfile.TemporaryDirectory() as tmp:
-        by_path["training"] = check_training(da, fa, tmp, gpu)
+        t0 = time.perf_counter()
+        paths, meta = write_training_assets(tmp)
+        print(f"training assets written in {time.perf_counter() - t0:.1f} s", flush=True)
+        by_path["training"] = check_training(da, fa, tmp, gpu, paths, meta)
+
+        # ---- phase 5: the other training stages
+        t0 = time.perf_counter()
+        check_small_stages_against_cpu(da, fa, tmp)
+        voc_cfg, (b_voc, t_voc) = vocoder_recipe(tmp, paths, meta, VOCODER_STEPS)
+        k4_voc = check_flash_vocoder_shape(fa, b_voc, t_voc)
+        by_path["vocoder"] = check_vocoder_training(da, fa, voc_cfg, paths, gpu, t_voc)
+        by_path["dvae"] = check_dvae_training(da, fa, tmp, gpu, paths, meta)
+        print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - begin:.1f} s", flush=True)
 
     def launches(kernel):
@@ -1706,7 +2125,8 @@ def main() -> int:
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"], "ratio": k4["ratio"],
         "training_shape": {key: k4_train[key] for key in (
             "B", "T", "ms", "library_ms", "library_causal_ms", "ratio", "ratio_causal",
-            "bound_ms")}}] + [{
+            "bound_ms")},
+        "vocoder_shape": k4_voc}] + [{
         # K5 / K6: plain_ms and library_ms (SDPA's backward) are of the whole
         # backward, dq, dk and dv together; ms and bound_ms of the kernel alone
         "name": name, "route": "cuda", "design": design,

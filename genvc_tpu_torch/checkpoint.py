@@ -666,9 +666,11 @@ def _take(node, i):
 
 
 def assign(module: nn.Module, tree: dict, device, path: str = "") -> None:
-    """Load ``tree`` into ``module``'s parameters (as f32 on ``device``). The
-    tree's keys must equal the module's parameter and child names exactly."""
-    expected = ({n for n, _ in module.named_parameters(recurse=False)}
+    """Load ``tree`` into ``module``'s parameters and buffers (as f32 on
+    ``device``). The tree's keys must equal the module's parameter, buffer
+    and child names exactly."""
+    buffers = {n for n, _ in module.named_buffers(recurse=False)}
+    expected = ({n for n, _ in module.named_parameters(recurse=False)} | buffers
                 | {n for n, _ in module.named_children()})
     if set(tree) != expected:
         raise KeyError(f"{path or '<root>'}: tree keys {sorted(tree)} != module "
@@ -691,8 +693,8 @@ def assign(module: nn.Module, tree: dict, device, path: str = "") -> None:
             if tuple(t.shape) != tuple(child.shape):
                 raise ValueError(f"{where}: shape {tuple(t.shape)} != "
                                  f"{tuple(child.shape)}")
-            setattr(module, key, nn.Parameter(
-                t.to(device=device, dtype=torch.float32), requires_grad=False))
+            t = t.to(device=device, dtype=torch.float32)
+            setattr(module, key, t if key in buffers else nn.Parameter(t, requires_grad=False))
 
 
 def _stack(trees):
@@ -702,12 +704,13 @@ def _stack(trees):
 
 
 def export_tree(module: nn.Module) -> dict:
-    """The inverse of :func:`assign`: ``module``'s parameters as a tree of f32
-    numpy arrays in the JAX package's layout. The layer lists the JAX tree
-    stacks (the GPT's ``blocks``, the Perceiver's and ContentVec's
+    """The inverse of :func:`assign`: ``module``'s parameters and buffers as a
+    tree of f32 numpy arrays in the JAX package's layout. The layer lists the
+    JAX tree stacks (the GPT's ``blocks``, the Perceiver's and ContentVec's
     ``layers``) are stacked on a leading axis, other lists stay lists."""
     out = {n: np.array(p.detach().float().cpu().numpy())  # a copy, never a view
-           for n, p in module.named_parameters(recurse=False)}
+           for n, p in [*module.named_parameters(recurse=False),
+                        *module.named_buffers(recurse=False)]}
     for name, child in module.named_children():
         if isinstance(child, nn.ModuleList):
             items = [export_tree(m) for m in child]

@@ -1,5 +1,5 @@
-"""Host-side dataset and collate policy of the GPT stage, numpy only
-(``genvc_tpu/data/dataset.py``).
+"""Host-side datasets and collate policies of the training stages, numpy
+only (``genvc_tpu/data/dataset.py``).
 
 Mirrors the reference data pipeline (dataset.py):
 
@@ -9,7 +9,9 @@ Mirrors the reference data pipeline (dataset.py):
   utterance; corrupt files substitute a known-good sample (:73-79, 122-129).
   The collate crops the whole batch to one random common length in
   [min,max]_text_len × 1920 samples (:166-169) and pads conditioning to the
-  batch max (:171-203).
+  batch max (:171-203). The GPT and vocoder stages read it.
+* ``WaveformDVAEDataset`` — the dVAE stages' wavs, cropped or padded to a
+  common bucketed length.
 
 As in the JAX package, the random common length is quantized to a small
 bucket grid (multiples of ``text_bucket`` content tokens) and conditioning
@@ -160,3 +162,57 @@ class VCWaveDataset:
         return {"wav": wav, "wav_lengths": wav_lengths,
                 "text_lengths": text_lengths, "conditioning": conds,
                 "cond_lens": cond_lens}
+
+
+class WaveformDVAEDataset:
+    """Wavs for the dVAE stages (metafile ``path|...``): the collate crops or
+    zero-pads every item to the batch's longest length, rounded up to
+    ``len_bucket`` samples and capped at ``max_wav_len``."""
+
+    def __init__(self, meta_file: str, is_eval: bool, sample_rate: int = 24000,
+                 max_wav_len: int = 144000, seed: int = 1994, len_bucket: int = 24000):
+        self.samples = []
+        with open(meta_file) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    self.samples.append(line.split("|")[0])
+        self.sample_rate = sample_rate
+        self.max_wav_len = max_wav_len
+        self.len_bucket = len_bucket
+        self.is_eval = is_eval
+        if not is_eval:
+            random.Random(seed).shuffle(self.samples)
+        self.substitution = None
+        for p in self.samples[:64]:
+            w = load_audio(p, sample_rate)
+            if w is not None:
+                self.substitution = w
+                break
+        self._rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def collate(self, indices, rng: random.Random | None = None):
+        rng = rng or self._rng
+        wavs = []
+        for i in indices:
+            w = load_audio(self.samples[i], self.sample_rate)
+            wavs.append(self.substitution if w is None else w)
+        b = len(wavs)
+        max_len = min(max(w.shape[-1] for w in wavs), self.max_wav_len)
+        max_len = min(int(np.ceil(max_len / self.len_bucket)) * self.len_bucket,
+                      self.max_wav_len)
+        out = np.zeros((b, 1, max_len), np.float32)
+        lengths = np.zeros((b,), np.int64)
+        for i, w in enumerate(wavs):
+            gap = w.shape[-1] - max_len
+            if gap < 0:
+                out[i, :, : w.shape[-1]] = w
+                lengths[i] = w.shape[-1]
+            else:
+                start = rng.randint(0, gap)
+                out[i, 0] = w[0, start : start + max_len]
+                lengths[i] = max_len
+        return {"wav": out, "wav_lengths": lengths}

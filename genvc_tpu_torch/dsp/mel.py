@@ -6,7 +6,10 @@ mel values feed frozen VQ codebooks, where one rounding can flip a code.
 
 :func:`mel_torchaudio` reproduces ``torchaudio.transforms.MelSpectrogram(
 power=2, norm='slaney', mel_scale='htk')`` + log-clamp + per-bin mel-norm
-division — the reference's ``TorchMelSpectrogram``.
+division — the reference's ``TorchMelSpectrogram``. :func:`mel_vocoder_loss`
+is the vocoder loss's librosa-mel magnitude features (center=False after a
+(n_fft - hop) / 2 reflect pad) and :func:`stft_complex` the MS-STFT
+discriminator's normalized complex STFT (center=False, no padding).
 """
 
 from __future__ import annotations
@@ -25,11 +28,16 @@ def frame_signal(x, n_fft: int, hop_length: int):
     return x.unfold(-1, n_fft, hop_length)
 
 
-def _power_spectrum(frames, n_fft: int, win_length: int):
-    cos_mat, sin_mat = filters.windowed_dft(n_fft, win_length, False)
+def _dft(frames, n_fft: int, win_length: int, normalized: bool = False):
+    """(re, im) of the windowed real DFT of (..., n_frames, n_fft) frames."""
+    cos_mat, sin_mat = filters.windowed_dft(n_fft, win_length, normalized)
     frames = frames.float()
-    re = frames @ torch.as_tensor(cos_mat, device=frames.device)
-    im = frames @ torch.as_tensor(sin_mat, device=frames.device)
+    return (frames @ torch.as_tensor(cos_mat, device=frames.device),
+            frames @ torch.as_tensor(sin_mat, device=frames.device))
+
+
+def _power_spectrum(frames, n_fft: int, win_length: int):
+    re, im = _dft(frames, n_fft, win_length)
     return re * re + im * im
 
 
@@ -68,3 +76,27 @@ def mel_torchaudio(x, spec: MelSpec, mel_norms=None, pre_padded: bool = False):
     if mel_norms is not None:
         mel = mel / mel_norms[None, None, :]
     return mel.transpose(-1, -2)
+
+
+def mel_vocoder_loss(x, spec: MelSpec):
+    """(B, T) -> (B, n_mels, frames): the reference vocoder loss's mel (reflect
+    pad (n_fft - hop) / 2, center=False, magnitude sqrt(re^2 + im^2 + 1e-9),
+    the spec's mel scale, log-clamp 1e-5)."""
+    pad = (spec.n_fft - spec.hop_length) // 2
+    x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = frame_signal(x, spec.n_fft, spec.hop_length)
+    mag = torch.sqrt(_power_spectrum(frames, spec.n_fft, spec.win_length) + 1e-9)
+    mel = mag @ torch.as_tensor(spec.fbank(), device=x.device)
+    return torch.log(mel.clamp_min(1e-5)).transpose(-1, -2)
+
+
+def stft_complex(x, n_fft: int, hop_length: int, win_length: int):
+    """Normalized complex STFT, center=False, no padding: (B, T) -> (re, im),
+    each (B, n_freqs, n_frames); torch ``Spectrogram(normalized=True,
+    center=False, power=None)``."""
+    re, im = _dft(frame_signal(x, n_fft, hop_length), n_fft, win_length, normalized=True)
+    return re.transpose(-1, -2), im.transpose(-1, -2)
+
+
+def num_frames_center(t: int, hop_length: int) -> int:
+    return 1 + t // hop_length

@@ -1,11 +1,17 @@
-"""Discrete VAE tokenizer, inference side (``genvc_tpu/models/dvae.py``).
+"""Discrete VAE tokenizer (``genvc_tpu/models/dvae.py``).
 
 encoder  [conv(k3, s2, p1) + relu] x num_layers -> ResBlock x n -> conv(k1)
-VQ       nearest codebook entry (reference distance + first-max tie-break)
+decoder  conv(k1) -> ResBlock x n -> [nearest x2 + conv(k3, p1) + relu] x
+         num_layers -> conv(k1)
+VQ       nearest codebook entry (reference distance + first-max tie-break);
+         in training an EMA codebook (decay .99, eps 1e-5), straight-through
+         estimator, commitment MSE.
 
-Only what inference needs: ``encode(valid_len=)``, ``nearest_codes`` and
-``get_codebook_indices``. The decoder and the EMA codebook update belong to
-training and are not ported here.
+The codebook (``embed`` (D, N); with ``trainable=True`` also the EMA
+statistics ``cluster_size`` and ``embed_avg``) is held in buffers: it gets no
+gradient and no optimizer update, only the EMA value that
+:meth:`DVAE.forward_train` returns. A frozen tokenizer (``trainable=False``)
+has no decoder.
 """
 
 from __future__ import annotations
@@ -15,7 +21,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from genvc_tpu_torch.ops.conv import Conv1d, init_conv1d
+import torch.nn.functional as F
+
+from genvc_tpu_torch.ops.conv import Conv1d, init_conv1d, nearest_upsample1d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +35,8 @@ class DVAEConfig:
     num_resnet_blocks: int = 3
     kernel_size: int = 3
     num_layers: int = 2
+    decay: float = 0.99
+    eps: float = 1e-5
 
 
 class _ResBlock(nn.Module):
@@ -53,11 +63,26 @@ class _Encoder(nn.Module):
         self.out = Conv1d(chans[-1], cfg.codebook_dim, 1)
 
 
-class _Codebook(nn.Module):
+class _Decoder(nn.Module):
     def __init__(self, cfg: DVAEConfig):
         super().__init__()
-        self.embed = nn.Parameter(torch.empty(cfg.codebook_dim, cfg.num_tokens),
-                                  requires_grad=False)
+        enc = [cfg.hidden_dim * 2 ** i for i in range(cfg.num_layers)]
+        chans = [enc[-1]] + enc[::-1]  # e.g. [1024, 1024, 512]
+        self.inp = Conv1d(cfg.codebook_dim, enc[-1], 1)
+        self.resblocks = nn.ModuleList(_ResBlock(enc[-1])
+                                       for _ in range(cfg.num_resnet_blocks))
+        self.ups = nn.ModuleList(Conv1d(chans[i], chans[i + 1], cfg.kernel_size)
+                                 for i in range(cfg.num_layers))
+        self.out = Conv1d(enc[0], cfg.channels, 1)
+
+
+class _Codebook(nn.Module):
+    def __init__(self, cfg: DVAEConfig, ema: bool):
+        super().__init__()
+        self.register_buffer("embed", torch.empty(cfg.codebook_dim, cfg.num_tokens))
+        if ema:
+            self.register_buffer("cluster_size", torch.empty(cfg.num_tokens))
+            self.register_buffer("embed_avg", torch.empty(cfg.codebook_dim, cfg.num_tokens))
 
 
 def _mask_t(x, valid_len):
@@ -69,14 +94,16 @@ def _mask_t(x, valid_len):
 
 
 class DVAE(nn.Module):
-    """Parameters as the JAX tree: ``encoder`` and ``codebook.embed`` (D, N).
-    A loaded tree's ``decoder`` and EMA statistics are not used here."""
+    """Parameters as the JAX tree: ``encoder`` and ``codebook.embed`` (D, N);
+    with ``trainable`` also ``decoder`` and the codebook's EMA statistics."""
 
-    def __init__(self, cfg: DVAEConfig):
+    def __init__(self, cfg: DVAEConfig, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = _Encoder(cfg)
-        self.codebook = _Codebook(cfg)
+        if trainable:
+            self.decoder = _Decoder(cfg)
+        self.codebook = _Codebook(cfg, ema=trainable)
 
     def encode(self, x, valid_len=None):
         """(B, C, T) -> (B, D, T/4) pre-quantization values; ``valid_len`` (B,)
@@ -104,21 +131,84 @@ class DVAE(nn.Module):
         """Features (B, C, T) -> codes (B, T/4)."""
         return self.nearest_codes(self.encode(x, valid_len).transpose(1, 2))
 
+    def decoder_forward(self, x):
+        """(B, D, T) -> (B, C, T * 2 ** num_layers)."""
+        pad = (self.cfg.kernel_size - 1) // 2
+        dec = self.decoder
+        x = dec.inp(x)
+        for rb in dec.resblocks:
+            x = rb(x)
+        for up in dec.ups:
+            x = torch.relu(up(nearest_upsample1d(x, 2), padding=pad))
+        return dec.out(x)
 
-def init_tree(gen, cfg: DVAEConfig):
-    """Seeded random encoder + codebook with the JAX package's init."""
+    def decode(self, codes):
+        """codes (B, T) -> (B, C, 4T) reconstruction (reference dvae.py:333-352)."""
+        return self.decoder_forward(self.codebook.embed.T[codes].transpose(1, 2))
+
+    def forward(self, x):
+        """The training forward, :meth:`forward_train`."""
+        return self.forward_train(x)
+
+    def forward_train(self, x):
+        """Training forward (reference dvae.py:363-381 in train mode): (B, C,
+        T) features -> (recon_loss, commitment_loss, recon, new_codebook,
+        codes). ``new_codebook`` is the EMA update of the three codebook
+        buffers, returned and not applied (the train step applies it after
+        the optimizer's update; an eval forward drops it). The EMA sums run as
+        f32 matmuls (TF32 off on the card), as the JAX package's HIGHEST."""
+        cfg = self.cfg
+        cb = self.codebook
+        z_btd = self.encode(x).transpose(1, 2)  # (B, T/4, D)
+        codes = self.nearest_codes(z_btd)
+        quant = cb.embed.T[codes]
+        with torch.no_grad():
+            n_embed = cb.embed.shape[1]
+            flat = z_btd.reshape(-1, z_btd.shape[-1]).float()
+            onehot = F.one_hot(codes.reshape(-1), n_embed).float()
+            cluster_size = cb.cluster_size * cfg.decay + onehot.sum(0) * (1 - cfg.decay)
+            embed_avg = cb.embed_avg * cfg.decay + (flat.T @ onehot) * (1 - cfg.decay)
+            n = cluster_size.sum()
+            cluster = (cluster_size + cfg.eps) / (n + n_embed * cfg.eps) * n
+            new_codebook = {"embed": embed_avg / cluster[None, :],
+                            "cluster_size": cluster_size, "embed_avg": embed_avg}
+        commitment = (quant.detach() - z_btd).square().mean()
+        quant_st = z_btd + (quant - z_btd).detach()  # straight-through
+        recon = self.decoder_forward(quant_st.transpose(1, 2))
+        recon_loss = (x - recon).square().mean()
+        return recon_loss, commitment, recon, new_codebook, codes
+
+
+def init_tree(gen, cfg: DVAEConfig, trainable: bool = False):
+    """Seeded random encoder + codebook with the JAX package's init; with
+    ``trainable`` the decoder and the EMA statistics too (``init_params``:
+    cluster_size zero, embed_avg = embed)."""
     h = cfg.hidden_dim
     chans = [cfg.channels] + [h * 2 ** i for i in range(cfg.num_layers)]
     inner = chans[-1]
-    enc = {
+
+    def resblock():
+        return {"conv1": init_conv1d(gen, inner, inner, 3),
+                "conv2": init_conv1d(gen, inner, inner, 3),
+                "conv3": init_conv1d(gen, inner, inner, 1)}
+
+    tree = {"encoder": {
         "convs": [init_conv1d(gen, chans[i + 1], chans[i], cfg.kernel_size)
                   for i in range(cfg.num_layers)],
-        "resblocks": [{"conv1": init_conv1d(gen, inner, inner, 3),
-                       "conv2": init_conv1d(gen, inner, inner, 3),
-                       "conv3": init_conv1d(gen, inner, inner, 1)}
-                      for _ in range(cfg.num_resnet_blocks)],
-        "out": init_conv1d(gen, cfg.codebook_dim, inner, 1),
-    }
+        "resblocks": [resblock() for _ in range(cfg.num_resnet_blocks)],
+        "out": init_conv1d(gen, cfg.codebook_dim, inner, 1)}}
+    if trainable:
+        dec = [inner] + chans[:0:-1]  # e.g. [1024, 1024, 512]
+        tree["decoder"] = {
+            "inp": init_conv1d(gen, inner, cfg.codebook_dim, 1),
+            "resblocks": [resblock() for _ in range(cfg.num_resnet_blocks)],
+            "ups": [init_conv1d(gen, dec[i + 1], dec[i], cfg.kernel_size)
+                    for i in range(cfg.num_layers)],
+            "out": init_conv1d(gen, cfg.channels, dec[-1], 1)}
     embed = torch.randn(cfg.codebook_dim, cfg.num_tokens, generator=gen,
                         device=gen.device)
-    return {"encoder": enc, "codebook": {"embed": embed}}
+    tree["codebook"] = {"embed": embed}
+    if trainable:
+        tree["codebook"].update(cluster_size=torch.zeros(cfg.num_tokens, device=gen.device),
+                                embed_avg=embed.clone())
+    return tree

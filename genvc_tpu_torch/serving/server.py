@@ -146,7 +146,7 @@ class StreamServer:
         ``mesh`` (sharding the pool over several cards) is not ported yet."""
         if mesh is not None:
             raise NotImplementedError("mesh= (the slot pool sharded over several "
-                                      "cards) is not ported yet (ROADMAP A13)")
+                                      "cards) is not ported yet (ROADMAP §A.6, the old A13)")
         self.pipe = pipe
         self.slots = int(slots)
         ab = max(1, int(adm_batch))

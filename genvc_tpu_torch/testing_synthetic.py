@@ -1,7 +1,7 @@
-"""Synthetic assets for a one-command smoke of the GPT training stage
-(``genvc_tpu/testing_synthetic.py``, the GPT-stage part): a sine-plus-noise
+"""Synthetic assets for a one-command smoke of each training stage
+(``genvc_tpu/testing_synthetic.py``, its smoke part): a sine-plus-noise
 dataset, frozen stage checkpoints in the reference torch formats at small
-dims, and the config overrides of ``--smoke``.
+dims, and the config overrides of the train scripts' ``--smoke``.
 
 Key names follow the reference trainers' state dicts, so the port's loaders
 and converters are exercised end to end; with the same seed the files equal
@@ -178,9 +178,11 @@ def write_stage_ckpts(out_dir):
     return paths
 
 
-def smoke_overrides(cfg, assets_dir):
-    """Shrink a GPT-stage config in place for a 2-step smoke run: tiny model
-    dims matching the synthetic checkpoints, synthetic data, batch 2."""
+def smoke_overrides(cfg, assets_dir, need_gpt_ckpt=False):
+    """Shrink a GPT- or vocoder-stage config in place for a 2-step smoke run:
+    tiny model dims matching the synthetic checkpoints, synthetic data,
+    batch 2. ``need_gpt_ckpt`` (the vocoder stage) points the config at the
+    synthetic GPT and fixes the text length at 2 tokens."""
     meta = make_sine_dataset(assets_dir)
     paths = write_stage_ckpts(assets_dir)
     cfg.train_metafile = meta
@@ -200,10 +202,43 @@ def smoke_overrides(cfg, assets_dir):
     ma.min_text_length, ma.max_text_length = 2, 4
     ma.min_conditioning_length, ma.max_conditioning_length = 24000, 36000
     ma.mel_norm_file = None
+    if need_gpt_ckpt:
+        ma.gpt_checkpoint = paths["gpt"]
+        ma.min_text_length = ma.max_text_length = 2
     vae_kw = dict(codebook_dim=24, hidden_dim=DVAE_HIDDEN,
                   num_resnet_blocks=3, kernel_size=3, num_layers=2)
     for k, v in dict(num_channels=80, num_tokens=64, **vae_kw).items():
         setattr(cfg.acoustic_dvae_config, k, v)
     for k, v in dict(num_channels=256, num_tokens=36, **vae_kw).items():
         setattr(cfg.content_dvae_config, k, v)
+    vc = cfg.vocoder_config
+    vc.input_feat_dim = GPT_DIM
+    vc.upsample_initial_channel = 16
+    vc.msstftd_filters = 4
+    vc.mssbcqtd_filters = 4
+    vc.mssbcqtd_hop_lengths = [512]
+    vc.mssbcqtd_n_octavess = [5]
+    vc.mssbcqtd_bins_per_octave = [12]
+    return cfg
+
+
+def smoke_vae_overrides(cfg, assets_dir):
+    """Shrink a VAEConfig in place for a 2-step smoke run."""
+    sr = cfg.audio.dvae_sample_rate
+    meta = make_sine_dataset(assets_dir, sr=sr, dur=0.6 if sr == 24000 else 1.2)
+    cfg.train_metafile = meta
+    cfg.test_metafile = meta
+    cfg.batch_size = 2
+    cfg.eval_batch_size = 2
+    cfg.num_loader_workers = 2
+    cfg.epochs = 1
+    cfg.max_wav_len = sr
+    cfg.mel_norm_file = None
+    if cfg.feat_type != "Mel-spectrogram":
+        cfg.contentvec_model_path = write_stage_ckpts(assets_dir)["contentvec"]
+    cfg.num_tokens = 32
+    cfg.codebook_dim = 16
+    cfg.hidden_dim = 8
+    cfg.num_resnet_blocks = 1
+    cfg.num_layers = 2
     return cfg

@@ -161,10 +161,10 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
     profiler spans: ``genvc.features``, ``genvc.forward``, ``genvc.backward``,
     ``genvc.optimizer``."""
     if remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("remat is not ported yet (ROADMAP §A.5, the old A12)")
     if content_dtype is not None:
         raise NotImplementedError("a reduced-precision ContentVec (content_dtype) "
-                                  "is not ported yet (ROADMAP A12)")
+                                  "is not ported yet (ROADMAP §A.5, the old A12)")
 
     def _loss(state, feats):
         tensors = state.params.tensors(compute_dtype)

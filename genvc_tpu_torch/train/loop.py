@@ -114,14 +114,15 @@ def fit(state, train_step: Callable, train_loader, *,
         eval_loader=None, ckpt: Optional[CheckpointManager] = None,
         save_step: int = 5000, print_step: int = 50,
         to_device: Callable = lambda b: b, start_step: int = 0,
+        on_epoch_end: Optional[Callable] = None,
         max_steps: Optional[int] = None,
         max_eval_batches: Optional[int] = None):
     """Run the training loop; returns the final state.
 
     max_steps caps TOTAL optimizer steps (resumed ones included): training
-    stops mid-epoch when reached, skipping that epoch's eval. max_eval_batches
-    caps the per-epoch eval pass. (The JAX package's ``on_epoch_end`` hook
-    renders listening samples; that is not ported, ROADMAP A12.)
+    stops mid-epoch when reached, skipping that epoch's eval and
+    ``on_epoch_end(state, epoch, step)``, which otherwise runs after each
+    epoch's eval. max_eval_batches caps the per-epoch eval pass.
     """
     step = start_step
     done = max_steps is not None and step >= max_steps
@@ -160,6 +161,8 @@ def fit(state, train_step: Callable, train_loader, *,
         logger.log(log, step=step)
         logger.print(f"epoch {epoch} done: "
                      f"{ {k: round(v, 4) for k, v in log.items() if k != 'epoch'} }")
+        if on_epoch_end is not None:
+            on_epoch_end(state, epoch, step)
     if ckpt is not None:
         ckpt.save(step, state)
     return state

@@ -1,6 +1,13 @@
-"""Stage runner of the GPT training stage (``genvc_tpu/train/runner.py``
-``run_gpt_training``): frozen modules from the stage checkpoints, the
-trainable GPT, the data, the optimizer and the loop, on one card."""
+"""Stage runners (``genvc_tpu/train/runner.py``): each ``run_*_training``
+mirrors one reference entry script end to end on one card — frozen modules
+from the stage checkpoints, the trainable modules, the data, the
+optimizers and the loop with keep-N checkpoints and resume.
+
+* :func:`run_vae_training`: the acoustic and content dVAEs (stages 1-2);
+* :func:`run_gpt_training`: the GPT (stage 3);
+* :func:`run_vocoder_training`: the HiFi-GAN GAN (stage 4), against the
+  frozen GPT's latents.
+"""
 
 from __future__ import annotations
 
@@ -11,11 +18,11 @@ import torch
 
 from genvc_tpu_torch import checkpoint as ckpt_lib
 from genvc_tpu_torch import resolve_device
-from genvc_tpu_torch.config import GenVCConfig
-from genvc_tpu_torch.data.dataset import VCDatasetConfig, VCWaveDataset
+from genvc_tpu_torch.config import GenVCConfig, VAEConfig
+from genvc_tpu_torch.data.dataset import VCDatasetConfig, VCWaveDataset, WaveformDVAEDataset
 from genvc_tpu_torch.data.loader import BatchLoader
-from genvc_tpu_torch.models import gpt as gpt_model
-from genvc_tpu_torch.train import gpt_stage, loop, optim
+from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan
+from genvc_tpu_torch.train import gpt_stage, loop, optim, vae_stage, vocoder_stage
 
 
 def datasets(cfg: GenVCConfig):
@@ -39,6 +46,105 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def _device_banner(dev) -> str:
+    return f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
+                               if dev.type == "cuda" else "")
+
+
+def _loaders(cfg, train_ds, eval_ds):
+    return (BatchLoader(train_ds, cfg.batch_size, num_workers=cfg.num_loader_workers),
+            BatchLoader(eval_ds, cfg.eval_batch_size, shuffle=False,
+                        num_workers=cfg.num_loader_workers))
+
+
+def _check_names(restored_names, params: optim.FlatParams):
+    if restored_names != params.names:
+        raise ValueError("checkpoint parameter layout differs from the model's")
+
+
+def run_vae_training(cfg: VAEConfig, max_steps: int | None = None,
+                     max_eval_batches: int | None = None, device="cuda"):
+    """Train a dVAE (stage 1: mel features; stage 2: ContentVec features) on
+    one device; returns the final :class:`vae_stage.VAETrainState`. At each
+    epoch's end the first eval batch's input and reconstruction are plotted
+    under ``<output_path>/eval_plots`` (and logged to wandb when on)."""
+    dev = resolve_device(device)
+    logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
+                         cfg.output_path)
+    logger.print(_device_banner(dev))
+    if cfg.feat_type == "Mel-spectrogram":
+        feat_params = torch.as_tensor(ckpt_lib.load_mel_norms(cfg.mel_norm_file), device=dev)
+    else:
+        cv_tree = ckpt_lib.load_contentvec(cfg.contentvec_model_path)
+        with torch.device("meta"):
+            feat_params = contentvec.ContentVec(n_layers=ckpt_lib._n_layers(cv_tree))
+        ckpt_lib.assign(feat_params, cv_tree, dev)
+        feat_params.eval()
+    feat_fn = vae_stage.make_feature_fn(cfg)
+
+    dcfg = ckpt_lib.dvae_config(cfg)
+    ckpt = loop.CheckpointManager(os.path.join(cfg.output_path, "ckpt"),
+                                  cfg.save_n_checkpoints)
+    restored, step0 = ckpt.restore()
+    if restored is not None:
+        tree = restored["params"]
+    elif cfg.vae_checkpoint:
+        tree = ckpt_lib.load_dvae(cfg.vae_checkpoint)
+    else:
+        tree = dvae.init_tree(torch.Generator(device=dev).manual_seed(1994), dcfg,
+                              trainable=True)
+    with torch.device("meta"):
+        model = dvae.DVAE(dcfg, trainable=True)
+    ckpt_lib.assign(model, tree, dev)
+    params = optim.FlatParams(model)
+    opt = vae_stage.make_optimizer(cfg, params)
+    if restored is not None:
+        _check_names(restored["names"], params)
+        opt.load_state_dict(restored["opt_state"])
+        logger.print(f"resumed from step {step0}")
+    state = vae_stage.VAETrainState(model, params, opt, int(step0 or 0))
+    train_step, eval_step = vae_stage.make_train_step(feat_fn)
+
+    rate = cfg.audio.dvae_sample_rate
+    train_loader, eval_loader = _loaders(
+        cfg, WaveformDVAEDataset(cfg.train_metafile, False, rate, cfg.max_wav_len),
+        WaveformDVAEDataset(cfg.test_metafile, True, rate, cfg.max_wav_len))
+
+    def on_epoch_end(state, epoch, step):
+        # input-vs-reconstruction images (reference VAE_trainer eval_step and
+        # its wandb table, VAE_trainer.py:134-141); a failure is logged, the
+        # training goes on
+        try:
+            from genvc_tpu_torch.utils import plot_feat
+
+            batch = to_device(next(iter(eval_loader)), dev)
+            with torch.no_grad():
+                feat = feat_fn(feat_params, batch["wav"])
+                recon = state.model.forward_train(feat)[2]
+            img_dir = os.path.join(cfg.output_path, "eval_plots")
+            os.makedirs(img_dir, exist_ok=True)
+            paths = {name: os.path.join(img_dir, f"e{epoch}_{name}.png")
+                     for name in ("input", "recon")}
+            plot_feat(feat[0].cpu().numpy(), paths["input"])
+            plot_feat(recon[0].cpu().numpy(), paths["recon"])
+            if logger.wandb is not None:
+                logger.wandb.log({f"eval/{name}": logger.wandb.Image(p)
+                                  for name, p in paths.items()})
+        except Exception as e:
+            logger.print(f"eval plot failed: {e!r}")
+
+    try:
+        return loop.fit(state, lambda s, b: train_step(s, b, feat_params), train_loader,
+                        epochs=cfg.epochs, logger=logger,
+                        eval_step=lambda s, b: eval_step(s, b, feat_params),
+                        eval_loader=eval_loader, ckpt=ckpt, save_step=cfg.save_step,
+                        to_device=lambda b: to_device(b, dev), start_step=state.step,
+                        on_epoch_end=on_epoch_end, max_steps=max_steps,
+                        max_eval_batches=max_eval_batches)
+    finally:
+        logger.close()
+
+
 def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
                      max_eval_batches: int | None = None, n_model: int = 1,
                      bf16: bool = False, remat=False, content_bf16: bool = False,
@@ -53,16 +159,15 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
     ported and raise."""
     if n_model > 1:
         raise NotImplementedError("tensor parallelism (n_model > 1) is not ported "
-                                  "yet (ROADMAP A13)")
+                                  "yet (ROADMAP §A.6, the old A13)")
     if remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("remat is not ported yet (ROADMAP §A.5, the old A12)")
     if content_bf16:
-        raise NotImplementedError("content_bf16 is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("content_bf16 is not ported yet (ROADMAP §A.5, the old A12)")
     dev = resolve_device(device)
     logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
                          cfg.output_path)
-    logger.print(f"device: {dev}"
-                 + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    logger.print(_device_banner(dev))
 
     ma = cfg.model_args
     frozen = gpt_stage.make_frozen(cfg, {
@@ -87,10 +192,7 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
     ckpt_lib.assign(model, tree, dev)
     params = optim.FlatParams(model)
 
-    train_ds, eval_ds = datasets(cfg)
-    train_loader = BatchLoader(train_ds, cfg.batch_size, num_workers=cfg.num_loader_workers)
-    eval_loader = BatchLoader(eval_ds, cfg.eval_batch_size, shuffle=False,
-                              num_workers=cfg.num_loader_workers)
+    train_loader, eval_loader = _loaders(cfg, *datasets(cfg))
     # MultiStepLR on epoch milestones -> step milestones (reference
     # lr_scheduler_params: milestones [10, 25, 35, 50], gamma 0.5)
     steps_per_epoch = max(len(train_loader), 1)
@@ -105,8 +207,7 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
                              weight_decay=op["weight_decay"],
                              max_grad_norm=cfg.max_grad_norm, params=params).init(params.flat)
     if restored is not None:
-        if restored["names"] != params.names:
-            raise ValueError("checkpoint parameter layout differs from the model's")
+        _check_names(restored["names"], params)
         tx.load_state_dict(restored["opt_state"])
         logger.print(f"resumed from step {step0}")
     state = gpt_stage.GPTTrainState(model, params, tx, int(step0 or 0))
@@ -123,6 +224,86 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
         return loop.fit(state, lambda s, b: train_step(s, b, frozen), train_loader,
                         epochs=cfg.epochs, logger=logger,
                         eval_step=lambda s, b: eval_step(s, b, frozen),
+                        eval_loader=eval_loader, ckpt=ckpt, save_step=cfg.save_step,
+                        print_step=cfg.print_step, to_device=lambda b: to_device(b, dev),
+                        start_step=state.step, max_steps=max_steps,
+                        max_eval_batches=max_eval_batches)
+    finally:
+        logger.close()
+
+
+def run_vocoder_training(cfg: GenVCConfig, max_steps: int | None = None,
+                         max_eval_batches: int | None = None, bf16_discs: bool = False,
+                         device="cuda"):
+    """Train the HiFi-GAN generator and its four discriminator families
+    (stage 4) against the frozen GPT's latents on one device; returns the
+    final :class:`vocoder_stage.VocoderTrainState`. The generator starts from
+    ``model_args.hifigan_checkpoint`` when given (kept in weight-norm form),
+    else from a seeded init; ``bf16_discs`` runs the discriminator conv
+    stacks in bf16 (the front ends and the losses stay f32)."""
+    ma = cfg.model_args
+    if not ma.gpt_checkpoint:
+        raise ValueError("the vocoder stage needs a frozen GPT checkpoint "
+                         "(model_args.gpt_checkpoint)")
+    dev = resolve_device(device)
+    logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
+                         cfg.output_path)
+    logger.print(_device_banner(dev))
+    frozen = gpt_stage.make_frozen(cfg, {
+        "contentvec": ckpt_lib.load_contentvec(cfg.contentvec_model_path),
+        "acoustic_dvae": ckpt_lib.load_dvae(cfg.acoustic_dvae_checkpoint),
+        "content_dvae": ckpt_lib.load_dvae(cfg.content_dvae_checkpoint),
+    }, ckpt_lib.load_mel_norms(ma.mel_norm_file), dev)
+    gcfg = ckpt_lib.gpt_config(cfg)
+    with torch.device("meta"):
+        gpt = gpt_model.GPT(gcfg)
+    ckpt_lib.assign(gpt, ckpt_lib.load_gpt(ma.gpt_checkpoint, gcfg.layers), dev)
+    gpt.eval()
+
+    vcfg = cfg.vocoder_config
+    ckpt = loop.CheckpointManager(os.path.join(cfg.output_path, "ckpt"),
+                                  cfg.save_n_checkpoints)
+    restored, step0 = ckpt.restore()
+    gen = torch.Generator(device=dev).manual_seed(cfg.training_seed)
+    with torch.device("meta"):
+        generator = hifigan.Generator(vcfg, weight_norm=True)
+    if restored is not None:
+        gen_tree = restored["gen_params"]
+    elif ma.hifigan_checkpoint:
+        sd, _ = ckpt_lib.load_torch_bundle(ma.hifigan_checkpoint)
+        gen_tree = ckpt_lib.convert_hifigan(ckpt_lib.strip_prefix(sd, "hifigan."), fold=False)
+    else:
+        gen_tree = hifigan.generator_to_weight_norm(hifigan.init_tree(gen, vcfg))
+    ckpt_lib.assign(generator, gen_tree, dev)
+    discs = vocoder_stage.init_discriminators(gen, vcfg)
+    if restored is not None:
+        ckpt_lib.assign(discs, restored["disc_params"], dev)
+    gen_params, disc_params = optim.FlatParams(generator), optim.FlatParams(discs)
+
+    train_loader, eval_loader = _loaders(cfg, *datasets(cfg))
+    op = cfg.optimizer_params or {"betas": [0.8, 0.99]}
+    # ExponentialLR per epoch (reference get_scheduler,
+    # hifigan_trainer.py:574-591, gamma = lr_decay)
+    sched = optim.exponential_epoch_schedule(
+        cfg.lr if isinstance(cfg.lr, float) else cfg.lr[0], cfg.lr_decay,
+        max(len(train_loader), 1))
+    gen_opt, disc_opt = (optim.vocoder_adamw(sched, betas=tuple(op["betas"])).init(p.flat)
+                         for p in (gen_params, disc_params))
+    if restored is not None:
+        _check_names(restored["gen_names"], gen_params)
+        _check_names(restored["disc_names"], disc_params)
+        gen_opt.load_state_dict(restored["gen_opt"])
+        disc_opt.load_state_dict(restored["disc_opt"])
+        logger.print(f"resumed from step {step0}")
+    state = vocoder_stage.VocoderTrainState(generator, discs, gen_params, disc_params,
+                                            gen_opt, disc_opt, int(step0 or 0))
+    train_step, eval_step = vocoder_stage.make_train_step(
+        vcfg, scale_factor=int(ma.gpt_code_stride_len // vcfg.hop_length),
+        disc_dtype=torch.bfloat16 if bf16_discs else None)
+    try:
+        return loop.fit(state, lambda s, b: train_step(s, b, frozen, gpt), train_loader,
+                        epochs=cfg.epochs, logger=logger,
+                        eval_step=lambda s, b: eval_step(s, b, frozen, gpt),
                         eval_loader=eval_loader, ckpt=ckpt, save_step=cfg.save_step,
                         print_step=cfg.print_step, to_device=lambda b: to_device(b, dev),
                         start_step=state.step, max_steps=max_steps,

@@ -7,8 +7,11 @@ Usage:
     python -m genvc_tpu_torch.train_genVC --smoke --device cpu   # 2 steps on
                                                                  # synthetic data
 
-Flags of modes the port does not have yet exit with code 2: ``--n_model``
-above 1, ``--remat 1|dots`` and ``--content_bf16``.
+Flags of modes the port does not have yet exit with code 2: ``--remat
+1|dots`` and ``--content_bf16`` (queued in ROADMAP §A.5, the rest of
+training) and ``--n_model`` above 1 (§A.6, parallelism). The other training
+stages have their own CLIs: ``train_audio_dvae`` and ``train_content_dvae``
+(stages 1-2) and ``train_vocoder`` (stage 4).
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ import sys
 
 _NOT_PORTED = [
     (lambda a: a.n_model > 1, "--n_model > 1 (tensor parallelism) is not ported yet "
-                              "(ROADMAP A13)"),
-    (lambda a: a.remat != "0", "--remat 1|dots is not ported yet (ROADMAP A12)"),
-    (lambda a: a.content_bf16, "--content_bf16 is not ported yet (ROADMAP A12)"),
+                              "(ROADMAP §A.6, the old A13)"),
+    (lambda a: a.remat != "0", "--remat 1|dots is not ported yet (ROADMAP §A.5, the old A12)"),
+    (lambda a: a.content_bf16, "--content_bf16 is not ported yet (ROADMAP §A.5, the old A12)"),
 ]
 
 
