@@ -25,7 +25,11 @@ the cache by parent beam) at the flagship cache of 4 beams, bf16 and e4m3:
 rows bit-equal to their parents', K1 on the reordered cache against its
 plain version, and its device time against its byte bound.
 
-Phase 2 holds the int8 product of the quantized linears (``ops.quant``:
+Phase 2 first checks the host audio loader: the native library
+(``native/audioio.cpp``) builds, ``load_audio`` takes it on the sample wavs
+(within 1e-6 of the numpy path) and gives fault C.6's inputs (a 24 kHz stereo
+wav cut in its header: ``None``; cut in its data chunk: (1, 7996) / (1, 11994)
+at 16 / 24 kHz) what the JAX package gives. It holds the int8 product of the quantized linears (``ops.quant``:
 ``torch._int_mm`` on the card) to its exact CPU version at the decode rows
 (1, 8, 16) and beyond, and at the heads' widths (1026, 258): int8 weights,
 activations and int32 accumulators equal, outputs within 1e-6; and times one
@@ -40,7 +44,9 @@ beams, 2 groups) and contrastive search (4 candidates), and streaming with
 int8 linears and with an fp8 cache (K1 on the card) must give the same
 lengths and audio within 1e-3; beam_sample (3 beams) with one noise sequence handed to both
 the same tokens; two GPT training steps (K4 / K5 / K6 on the card) must
-give the same codes, losses, gradient norms and parameters.
+give the same codes, losses, gradient norms and parameters. The port's CLI
+then streams one utterance with ``--bf16 --profile DIR`` on a small bundle:
+the trace must hold K1's two CUDA kernels.
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
@@ -73,10 +79,17 @@ printed beside phase 3's.
 Phase 4 trains the GPT at flagship width (stage 3, bf16 on f32 masters,
 attention kernels K4 forward, K5 / K6 backward) through
 ``train.runner.run_gpt_training`` on wavs tiled from the samples, B = 8 with
-50-token texts: 1 warm-up and 5 timed steps (K4 = K5 = K6 = 30 a step, K1 =
-K3 = 0), a checkpoint written and resumed for one more step; then, on one
+50-token texts: one epoch of 1 warm-up and 5 timed steps (K4 = K5 = K6 = 30
+a step, K1 = K3 = 0), one eval batch (K4 30 more) and, at the epoch's end,
+the two listening samples (f32 decode, the acoustic dVAE's decode,
+Griffin-Lim), finite and each passing ``check_audio``; a checkpoint written
+and resumed for one more step; then, on one
 fixed batch, steps timed with a device sync (losses must fall), the same
-step with ``attn_impl="xla"`` in turns with the kernels', and one step at the
+step with ``attn_impl="xla"`` in turns with the kernels'; on that batch the
+loss and gradients with ``remat=True`` and ``"dots"`` bit-equal to the step
+without (K4 = 60, K5 = K6 = 30: the recompute runs K4 again), each
+setting's step ms and peak memory, the bf16 ContentVec's code flip share and
+time against f32 and one ``content_dtype`` step; and one step at the
 recipe's B = 24 with 100-token texts for peak memory.
 
 Phase 5 trains the other stages. A small f32 configuration runs one GAN step
@@ -215,6 +228,29 @@ def device_ms(fn, iters=50, warmup=5, tries=3, same_per_call=True):
               f"launches in {iters} calls: taken again", flush=True)
     print(f"device_ms: no complete trace in {tries} tries: not measured", flush=True)
     return None, None
+
+
+def kernel_profile(fn, n=6):
+    """One traced call of ``fn``: its kernels' summed device ms, the device
+    records and the host's kernel launches in the trace (equal unless the
+    tracer lost records), and the ``n`` kernels with the most device time
+    {name cut to 80 characters: ms}."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    totals, records, launches = {}, 0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            key = ev.name[:80]
+            totals[key] = totals.get(key, 0.0) + (ev.time_range.end - ev.time_range.start) / 1e3
+            records += 1
+        elif "LaunchKernel" in ev.name:
+            launches += 1
+    return {"device_ms": sum(totals.values()), "device_records": records,
+            "launches": launches,
+            "top_ms": dict(sorted(totals.items(), key=lambda kv: -kv[1])[:n])}
 
 
 def ratio(a, b):
@@ -852,6 +888,126 @@ def small_config(pipeline):
     return cfg
 
 
+def check_native_audio(tmp):
+    """The native audio library (``native/audioio.cpp``) builds here and
+    ``load_audio`` takes it: on the sample wavs (96 kHz PCM32) at 16 and
+    24 kHz it gives the native result, within 1e-6 of the numpy path
+    (``read_wav`` + ``resample_np``). Fault C.6's inputs, a 24 kHz stereo
+    int16 wav cut to 6, 20 and 40 bytes (inside the header) and to half
+    (inside the data chunk): ``None``, ``None``, ``None`` and (1, 7996) /
+    (1, 11994) samples at 16 / 24 kHz, as the JAX package gives them."""
+    import wave
+
+    import numpy as np
+
+    from genvc_tpu_torch.data import native_audio
+    from genvc_tpu_torch.dsp import audio_io
+    from genvc_tpu_torch.dsp.resample import resample_np
+
+    t0 = time.perf_counter()
+    if not native_audio.available():
+        raise AssertionError("the native audio library did not build")
+    build_s = time.perf_counter() - t0
+    worst = 0.0
+    for f in ("EF4_ENG_0112_1.wav", "EM1_ENG_0037_1.wav"):
+        path = os.path.join(HERE, "samples", f)
+        for sr in (16000, 24000):
+            got = audio_io.load_audio(path, sr)
+            if not np.array_equal(got, native_audio.load_audio_native(path, sr)):
+                raise AssertionError(f"load_audio({f}, {sr}) did not take the native path")
+            audio, rate = audio_io.read_wav(path)
+            want = np.clip(resample_np(audio.mean(axis=0, keepdims=True), rate, sr), -1, 1)
+            worst = max(worst, float(np.abs(got - want).max()))
+    if worst > 1e-6:
+        raise AssertionError(f"native vs numpy load_audio: {worst}")
+    rng = np.random.default_rng(0)
+    stereo = os.path.join(tmp, "stereo24k.wav")
+    with wave.open(stereo, "wb") as wf:
+        wf.setnchannels(2)
+        wf.setsampwidth(2)
+        wf.setframerate(24000)
+        wf.writeframes((rng.standard_normal((24000, 2)) * 0.2 * 32767).astype(np.int16).tobytes())
+    data = open(stereo, "rb").read()
+    shapes = {}
+    for n in (6, 20, 40, len(data) // 2):
+        cut = os.path.join(tmp, f"cut{n}.wav")
+        with open(cut, "wb") as f:
+            f.write(data[:n])
+        for sr in (16000, 24000):
+            out = audio_io.load_audio(cut, sr)
+            shapes[f"{n}_bytes_{sr}"] = None if out is None else list(out.shape)
+    want = {"6_bytes_16000": None, "6_bytes_24000": None, "20_bytes_16000": None,
+            "20_bytes_24000": None, "40_bytes_16000": None, "40_bytes_24000": None,
+            f"{len(data) // 2}_bytes_16000": [1, 7996], f"{len(data) // 2}_bytes_24000": [1, 11994]}
+    if shapes != want:
+        raise AssertionError(f"C.6 inputs: {shapes}, expected {want}")
+    print("native audio " + json.dumps({
+        "library": os.path.relpath(native_audio.lib_path(), HERE), "build_or_load_s": build_s,
+        "load_audio_path": "native", "native_vs_numpy_max_abs": worst,
+        "c6_shapes": shapes}), flush=True)
+
+
+def check_cli_profile(pipeline, da, fa, tmp, gpu):
+    """``python -m genvc_tpu_torch.infer --streaming --bf16 --profile DIR``
+    (in this process) on a small bundle (the phase-2 configuration, GPT 2 x
+    64 with 69 mel tokens, seeded weights written by ``export_bundle``) and a
+    0.5 s source: the
+    conversion writes its wav and ``DIR/trace.json``, and the trace holds
+    K1's two CUDA kernels (``decode_split_logits``, ``decode_split_pv``).
+    The tracer has lost device records on that machine before, so the
+    count of each in the trace is printed beside the wrapper's launches,
+    not required to equal it."""
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint, infer
+    from genvc_tpu_torch.dsp.audio_io import load_audio, write_wav
+    from genvc_tpu_torch.models import dvae
+
+    cfg = small_config(pipeline)
+    tree = pipeline.random_tree(cfg, seed=3, device="cpu")
+    # 66 decode steps at most, not 602 (random weights never stop early), so
+    # the trace stays small: 69 = 605 - 67 x 8 mel tokens, so the streaming
+    # windows end 2 past the cap, as at the default; mel positions cut to match
+    cfg.model_args.gpt_max_audio_tokens = 69
+    tree["config"] = cfg.to_dict()
+    tree["gpt"]["mel_pos"] = tree["gpt"]["mel_pos"][: 69 + 3]
+    # a bundle's dVAE carries its decoder: draw the trainable form
+    tree["content_dvae"] = dvae.init_tree(torch.Generator().manual_seed(4), checkpoint.dvae_config(
+        cfg.content_dvae_config), trainable=True)
+    bundle = os.path.join(tmp, "small_bundle.pth")
+    checkpoint.export_bundle(tree, bundle)
+    src = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 16000)
+    src_path, out, prof = (os.path.join(tmp, n) for n in ("src.wav", "out.wav", "prof"))
+    write_wav(src_path, src[:, :8000], 16000)
+    flags = ["--model_path", bundle, "--device", "cuda", "--streaming", "--bf16", "--top_k",
+             "1", "--src_wav", src_path, "--ref_audio",
+             os.path.join(HERE, "samples", "EM1_ENG_0037_1.wav"), "--output_path", out,
+             "--profile", prof]
+    t0 = time.perf_counter()
+    with Launches(da, fa) as n:
+        rc = infer.main(flags)
+    wall = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(out):
+        raise AssertionError(f"infer --profile exited {rc}")
+    trace_path = os.path.join(prof, "trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for k in ("decode_split_logits", "decode_split_pv"):
+                if k in ev.get("name", ""):
+                    kernels[k] = kernels.get(k, 0) + 1
+    expect_none("cli --profile", n, ("k3", "k4", "k5", "k6"))
+    if not n.k1 or set(kernels) != {"decode_split_logits", "decode_split_pv"}:
+        raise AssertionError(f"trace kernels {kernels}, K1 launched {n.k1} times")
+    print("cli profile " + json.dumps({
+        "trace_mb": os.path.getsize(trace_path) / 2 ** 20, "events": len(events),
+        "k1_launches": n.k1, "k1_kernels_in_trace": kernels, "wall_s": wall,
+        "gpu": gpu}), flush=True)
+    return n.counts()
+
+
 def serve(server_cls, pipe, srcs, refs, **kw):
     """All streams through a server; the ones after the first two are
     submitted after the first step (mid-flight). Returns the waveforms."""
@@ -1363,7 +1519,8 @@ def check_small_train_against_cpu(da, fa, tmp):
 def write_training_assets(tmp):
     """Frozen stage checkpoints at flagship width in the reference formats
     (seeded random weights: ContentVec 12 layers; acoustic dVAE 80 ch / 1024
-    tokens and content dVAE 256 ch / 256 tokens, codebook 512, hidden 512)
+    tokens and content dVAE 256 ch / 256 tokens, codebook 512, hidden 512;
+    the acoustic decoder's output scaled to a log-mel's range)
     and a metafile of 48 wavs, each a sample tiled to >= 8.5 s at 24 kHz
     (rolled so no two are equal). Returns (paths, metafile)."""
     import numpy as np
@@ -1376,7 +1533,12 @@ def write_training_assets(tmp):
              "acoustic_dvae": os.path.join(tmp, "acoustic_dvae.pth"),
              "content_dvae": os.path.join(tmp, "content_dvae.pth")}
     torch.save({"model": ts.contentvec_sd(prefix="", n_layers=12)}, paths["contentvec"])
-    torch.save(ts.dvae_sd("", 80, 1024, codebook_dim=512, hidden=512), paths["acoustic_dvae"])
+    acoustic = ts.dvae_sd("", 80, 1024, codebook_dim=512, hidden=512)
+    # the decoder's output conv scaled so the random decoder's log-mel stays
+    # within about +-5 (unscaled it reaches ~4000, and the listening samples'
+    # exp of the de-normalized mel overflows to inf, Griffin-Lim to NaN)
+    acoustic["decoder.6.weight"] *= 1e-3
+    torch.save(acoustic, paths["acoustic_dvae"])
     torch.save(ts.dvae_sd("", 256, 256, codebook_dim=512, hidden=512), paths["content_dvae"])
     srcs = [load_audio(os.path.join(HERE, "samples", f), 24000)[0]
             for f in ("EF4_ENG_0112_1.wav", "EM1_ENG_0037_1.wav")]
@@ -1410,20 +1572,24 @@ def check_training(da, fa, tmp, gpu, paths, meta):
     cfg.print_step = 1
     layers, steps, b, text_len = ma.gpt_layers, 6, cfg.batch_size, 50
 
-    # the entry point: 1 warm-up + 5 timed steps, a checkpoint at the end
+    # the entry point: one epoch of 48 wavs, 1 warm-up + 5 timed steps, one
+    # eval batch (K4 30 more), the listening samples, a checkpoint
+    cfg.epochs = 1
     torch.cuda.reset_peak_memory_stats()
-    with Launches(da, fa) as n:
+    with Launches(da, fa) as n, ListeningSamples() as samples:
         t0 = time.perf_counter()
-        state = runner.run_gpt_training(cfg, max_steps=steps, bf16=True, device="cuda")
+        state = runner.run_gpt_training(cfg, max_eval_batches=1, bf16=True, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak_b8 = torch.cuda.max_memory_allocated()
-    for k in ("k4", "k5", "k6"):
+    expect("training K4", n.k4, layers * (steps + 1))
+    for k in ("k5", "k6"):
         expect(f"training {k.upper()}", getattr(n, k), layers * steps)
     expect_none("training", n, ("k1", "k3"))
     counts = n.counts()
+    listening = samples.check(os.path.join(cfg.output_path, "eval_samples"))
     with open(os.path.join(cfg.output_path, "train_log.jsonl")) as f:
-        log = [json.loads(line) for line in f]
+        log = [r for r in map(json.loads, f) if "steps_per_sec" in r]
     losses = [r["loss"] for r in log]
     step_ms = [1e3 / r["steps_per_sec"] for r in log]
     if len(log) != steps or not all(np.isfinite(losses)):
@@ -1431,6 +1597,7 @@ def check_training(da, fa, tmp, gpu, paths, meta):
     del state
 
     # resume from the step-6 checkpoint for one more step
+    cfg.epochs = 2
     with Launches(da, fa) as n:
         state = runner.run_gpt_training(cfg, max_steps=steps + 1, bf16=True, device="cuda")
     if state.step != steps + 1 or state.opt.count != steps + 1:
@@ -1471,6 +1638,9 @@ def check_training(da, fa, tmp, gpu, paths, meta):
     if not (all(np.isfinite(fixed_losses)) and fixed_losses[-1] < fixed_losses[0]):
         raise AssertionError(f"fixed batch: losses did not fall: {fixed_losses}")
 
+    remat_rec = check_remat(da, fa, gpu, state, batch, frozen, layers)
+    content_rec = check_content_bf16(da, fa, gpu, state, batch, frozen, layers)
+
     # the recipe's B = 24 with 100-token texts: one step, peak memory
     ma.min_text_length = ma.max_text_length = 100
     train_ds, _ = runner.datasets(cfg)
@@ -1504,10 +1674,192 @@ def check_training(da, fa, tmp, gpu, paths, meta):
            "max_memory_allocated_b8": peak_b8, "resumed_to_step": steps + 1,
            "b24_text_len": 100, "b24_step_ms": ms24, "b24_loss": loss24,
            "b24_mfu": flops(24, 100) / (ms24 / 1e3) / BF16_FLOPS,
-           "max_memory_allocated_b24": peak_b24, "launches": counts, "gpu": gpu}
+           "max_memory_allocated_b24": peak_b24, "launches": counts,
+           "listening_samples": listening, "gpu": gpu}
     print("training " + json.dumps(rec), flush=True)
-    return counts
+    return counts, remat_rec["launches"], content_rec["launches"]
 
+
+REMAT_SETTINGS = (False, True, "dots")
+
+
+def check_remat(da, fa, gpu, state, batch, frozen, layers):
+    """Phase 4, activation checkpointing on the fixed batch (B = 8, bf16 on
+    f32 masters, the kernels' path). The loss and gradient of the step
+    without remat (taken twice: the card's own run-to-run spread), with
+    ``remat=True`` and with ``"dots"``: loss and every gradient element must
+    be bit-equal, K4 launched 30 / 60 / 60 times (the recompute runs the
+    attention forward again), K5 = K6 = 30; the memory the forward keeps for
+    the backward and the forward and backward's peak, each above what was
+    allocated before them. Then whole steps of each
+    setting (1 warm-up, 3 timed to a device sync): step ms and the step's
+    peak memory."""
+    import numpy as np
+
+    from genvc_tpu_torch.train import gpt_stage
+
+    feats = gpt_stage.prepare_features(frozen, batch)
+    feats = dict(feats, cond_mels=feats["cond_mels"].to(torch.bfloat16))
+
+    def grad(remat):
+        flat = state.params.flat
+        flat.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with Launches(da, fa) as n:
+            loss, _ = gpt_stage.loss_fn(state.model, state.params.tensors(torch.bfloat16), feats,
+                                        0.01, 1.0, True, "flash", remat)
+            n.kept = torch.cuda.memory_allocated() - base
+            loss.backward()
+            torch.cuda.synchronize()
+        n.peak = torch.cuda.max_memory_allocated() - base
+        g, flat.grad = flat.grad, None
+        return loss.detach(), g, n
+
+    runs = {"no_remat": grad(False), "no_remat_again": grad(False),
+            "remat": grad(True), "dots": grad("dots")}
+    loss0, g0, _ = runs["no_remat"]
+    diffs = {}
+    for name, (loss, g, n) in runs.items():
+        k4 = layers * (1 if name.startswith("no_remat") else 2)
+        if (n.k4, n.k5, n.k6) != (k4, layers, layers) or n.k1 or n.k3:
+            raise AssertionError(f"remat {name}: launches {n.counts()}, expected K4 {k4}, "
+                                 f"K5 = K6 = {layers}")
+        diffs[name] = {"loss_bit_equal": bool(torch.equal(loss, loss0)),
+                       "grad_bit_equal": bool(torch.equal(g, g0)),
+                       "grad_max_abs_diff": float((g - g0).abs().max()),
+                       "grad_elements_differing": int((g != g0).sum()),
+                       "kept_for_backward_bytes": n.kept,
+                       "fwd_bwd_peak_bytes_above_start": n.peak,
+                       "k4": n.k4, "k5": n.k5, "k6": n.k6}
+    for name in ("remat", "dots"):
+        if not (diffs[name]["loss_bit_equal"] and diffs[name]["grad_bit_equal"]):
+            raise AssertionError(f"remat {name}: loss / gradients differ from the step "
+                                 f"without remat: {diffs}")
+    del runs, g0
+
+    steps, launches = {}, {}
+    for r in REMAT_SETTINGS:
+        step = gpt_stage.make_train_step(compute_dtype=torch.bfloat16, remat=r)[0]
+        ms = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            with Launches(da, fa) as n:
+                t0 = time.perf_counter()
+                _, m = step(state, batch, frozen)
+                loss = float(m["loss"])
+                if i:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss) or n.k4 != layers * (2 if r else 1):
+                raise AssertionError(f"remat={r} step: loss {loss}, launches {n.counts()}")
+        name = {False: "no_remat", True: "remat", "dots": "dots"}[r]
+        launches[f"training_{name}"] = n.counts()
+        steps[name] = {"step_ms": ms, "step_ms_median": statistics.median(ms),
+                       "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                       "k4_per_step": n.k4, "k5_per_step": n.k5, "k6_per_step": n.k6}
+    rec = {"batch": batch["wav"].shape[0], "grads": diffs, "steps": steps, "gpu": gpu}
+    print("remat " + json.dumps(rec), flush=True)
+    return {"launches": launches}
+
+
+def check_content_bf16(da, fa, gpu, state, batch, frozen, layers):
+    """Phase 4, the bf16 ContentVec on the fixed batch: the share of content
+    codes that flip against the f32 ContentVec (all positions, and the valid
+    ones), the acoustic labels unchanged, the ContentVec's time in f32 and
+    bf16 (CUDA events around 10 calls; one traced call's device time,
+    launches and costliest kernels), and one ``content_dtype`` step."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from genvc_tpu_torch.dsp.resample import resample
+    from genvc_tpu_torch.train import gpt_stage
+
+    f32 = gpt_stage.prepare_features(frozen, batch)
+    b16 = gpt_stage.prepare_features(frozen, batch, content_dtype=torch.bfloat16)
+    if not torch.equal(f32["audio_codes"], b16["audio_codes"]):
+        raise AssertionError("content_bf16 changed the acoustic labels")
+    codes, codes16 = f32["text_inputs"], b16["text_inputs"]
+    valid = (torch.arange(codes.shape[1], device=codes.device)[None, :]
+             < f32["text_lengths"][:, None])
+    flips = codes != codes16
+    wav = batch["wav"][:, 0, :]
+    pad = int(frozen.text_frame_rate * frozen.content_sample_rate)
+    content_wav = F.pad(resample(wav, frozen.sample_rate, frozen.content_sample_rate), (0, pad))
+    cv_ms, cv_prof = {}, {}
+    with torch.no_grad():
+        for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+            run = lambda: frozen.contentvec(content_wav, compute_dtype=dt)  # noqa: E731
+            cv_ms[name] = time_ms(run, iters=10, warmup=2)
+            cv_prof[name] = kernel_profile(run)
+    step = gpt_stage.make_train_step(compute_dtype=torch.bfloat16,
+                                     content_dtype=torch.bfloat16)[0]
+    with Launches(da, fa) as n:
+        _, m = step(state, batch, frozen)
+        loss = float(m["loss"])
+    if not np.isfinite(loss) or (n.k4, n.k5, n.k6) != (layers, layers, layers):
+        raise AssertionError(f"content_bf16 step: loss {loss}, launches {n.counts()}")
+    rec = {"codes": codes.numel(), "flipped": int(flips.sum()),
+           "flip_share": float(flips.float().mean()),
+           "valid_codes": int(valid.sum()), "valid_flipped": int((flips & valid).sum()),
+           "valid_flip_share": float((flips & valid).sum() / valid.sum()),
+           "contentvec_ms_f32": cv_ms["f32"], "contentvec_ms_bf16": cv_ms["bf16"],
+           "contentvec_speedup": cv_ms["f32"] / cv_ms["bf16"],
+           "contentvec_traced": cv_prof,
+           "step_loss": loss,
+           "content_wav_shape": list(content_wav.shape), "gpu": gpu}
+    print("content_bf16 " + json.dumps(rec), flush=True)
+    return {"launches": {"training_content_bf16": n.counts()}}
+
+
+class ListeningSamples:
+    """Times ``eval_samples.generate_eval_samples`` while the runner calls it
+    at an epoch's end (the runner imports it at that call) and keeps what it
+    returned; :meth:`check` then holds those waveforms finite and the two
+    files written from them (``e<epoch>_self.wav``, ``e<epoch>_cross<row>.wav``)
+    to ``check_audio``."""
+
+    def __enter__(self):
+        from genvc_tpu_torch.train import eval_samples
+
+        self.module, self.generate, self.runs = eval_samples, eval_samples.generate_eval_samples, []
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.generate(*args, **kw)
+            self.runs.append((time.perf_counter() - t0, out))
+            return out
+
+        eval_samples.generate_eval_samples = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.generate_eval_samples = self.generate
+        return False
+
+    def check(self, sample_dir):
+        import numpy as np
+
+        from genvc_tpu_torch.dsp.audio_io import read_wav
+
+        names = sorted(os.listdir(sample_dir)) if os.path.isdir(sample_dir) else []
+        if len(self.runs) != 1 or len(names) != 2 or "e0_self.wav" not in names:
+            raise AssertionError(f"on_epoch_end wrote {names} ({len(self.runs)} sample runs)")
+        seconds, (self_wav, cross_wav, tgt) = self.runs[0]
+        for name, wav in (("self", self_wav), ("cross", cross_wav)):
+            if not (wav.size and np.isfinite(wav).all()):
+                raise AssertionError(f"listening sample {name}: not finite")
+        rec = {"files": names, "generate_eval_samples_s": seconds, "target_row": tgt,
+               "peak_abs": [float(np.abs(w).max()) for w in (self_wav, cross_wav)]}
+        for name in names:
+            audio, sr = read_wav(os.path.join(sample_dir, name))
+            check_audio(f"listening sample {name}", audio[0], sr)
+            rec[name + "_s"] = audio.shape[1] / sr
+        print("listening samples " + json.dumps(rec), flush=True)
+        return rec
 
 
 # ---- phase 5: dVAE training (stages 1-2) and the HiFi-GAN GAN (stage 4)
@@ -1947,6 +2299,8 @@ def main() -> int:
     k56, k56_328 = check_flash_backward(fa)
 
     # ---- phase 2: a small f32 configuration, card vs CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        check_native_audio(tmp)
     src = load_audio(os.path.join(HERE, "samples", "EF4_ENG_0112_1.wav"), 16000)
     ref = load_audio(os.path.join(HERE, "samples", "EM1_ENG_0037_1.wav"), 24000)
     src2 = load_audio(os.path.join(HERE, "samples", "EM1_ENG_0037_1.wav"), 16000)
@@ -1958,6 +2312,7 @@ def main() -> int:
     check_small_against_cpu(pipeline, engine, StreamServer, da, fa, quant, src, ref, src2)
     with tempfile.TemporaryDirectory() as tmp:
         check_small_train_against_cpu(da, fa, tmp)
+        cli_profile = check_cli_profile(pipeline, da, fa, tmp, gpu)
 
     # ---- phase 3: every path at flagship width, bf16
     cfg = pipeline.flagship_config()
@@ -1968,7 +2323,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"flagship pipeline built in {time.perf_counter() - t0:.1f} s", flush=True)
     layers = pipe.gpt_cfg.layers  # K1 and K4 each run once per GPT block
-    by_path = {}
+    by_path = {"cli_profile": cli_profile}
 
     # streaming, one utterance
     pipe.synthesize_streaming(src, ref, verbose=False)  # warm-up (cuDNN plans)
@@ -2066,7 +2421,10 @@ def main() -> int:
         t0 = time.perf_counter()
         paths, meta = write_training_assets(tmp)
         print(f"training assets written in {time.perf_counter() - t0:.1f} s", flush=True)
-        by_path["training"] = check_training(da, fa, tmp, gpu, paths, meta)
+        by_path["training"], remat_launches, content_launches = check_training(
+            da, fa, tmp, gpu, paths, meta)
+        by_path.update(remat_launches)
+        by_path.update(content_launches)
 
         # ---- phase 5: the other training stages
         t0 = time.perf_counter()

@@ -5,7 +5,8 @@ Usage:
         --src_wav samples/EF4_ENG_0112_1.wav \
         --ref_audio samples/EM1_ENG_0037_1.wav \
         --output_path out.wav [--streaming] [--top_k 1] [--bf16] \
-        [--quantize int8] [--kv_cache fp8] [--seed 0] [--device cuda]
+        [--quantize int8] [--kv_cache fp8] [--seed 0] [--device cuda] \
+        [--profile DIR]
 
     # offline search modes (single utterance, without --streaming)
     ... --num_beams 4 [--length_penalty 1.0] [--beam_do_sample]
@@ -30,6 +31,8 @@ the recommended serving configuration, on every mode above. ``--model_path``
 takes a reference ``.pth`` bundle or a converted ``.npz`` bundle (beside its
 ``<stem>.config.json``; ``python -m genvc_tpu_torch.tools.convert_checkpoint``).
 ``--serve`` without ``--src_wavs --streaming`` exits with code 2.
+``--profile DIR`` records a ``torch.profiler`` trace of the conversion (after
+the models are loaded; the card's kernels included) into ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ def main(argv=None) -> int:
                              "continuous-batching StreamServer of SLOTS decode slots")
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
                         help="int8 W8A8 GPT linears")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="record a torch.profiler trace of the conversion into "
+                             "DIR/trace.json (Chrome trace format)")
     args = parser.parse_args(argv)
 
     if args.serve > 0 and not (args.src_wavs and args.streaming):
@@ -92,8 +98,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from genvc_tpu_torch.dsp.audio_io import load_audio, write_wav
     from genvc_tpu_torch.inference.pipeline import model_init
+    from genvc_tpu_torch.utils import profile_trace
 
     pipe = model_init(args.model_path, device=args.device,
                       dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -102,6 +108,14 @@ def main(argv=None) -> int:
     # top_k is the main quality knob; greedy (top_k=1) is preferred for
     # streaming (reference README.md:52)
     pipe.sampler = dataclasses.replace(pipe.sampler, top_k=args.top_k)
+    with profile_trace(args.profile):  # written on every exit path
+        return _convert(args, pipe)
+
+
+def _convert(args, pipe) -> int:
+    """Load the audio, convert in the mode the flags ask for, write the
+    outputs; returns the exit code."""
+    from genvc_tpu_torch.dsp.audio_io import load_audio, write_wav
 
     if args.src_wavs:
         ref_paths = args.ref_audios or [args.ref_audio]

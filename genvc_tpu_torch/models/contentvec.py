@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from genvc_tpu_torch.ops import nn as tnn
 from genvc_tpu_torch.ops.conv import Conv1d
@@ -31,10 +32,10 @@ def frame_count(n_samples: int) -> int:
     return t
 
 
-def _time_mask(t, valid, device):
-    """(B,) valid lengths -> (B, 1, t) float mask."""
+def _time_mask(t, valid, device, dtype=torch.float32):
+    """(B,) valid lengths -> (B, 1, t) mask of ``dtype``."""
     return (torch.arange(t, device=device)[None, None, :]
-            < valid[:, None, None]).float()
+            < valid[:, None, None]).to(dtype)
 
 
 def _group_norm_per_channel(x, scale, bias, valid=None, eps=1e-5):
@@ -44,7 +45,7 @@ def _group_norm_per_channel(x, scale, bias, valid=None, eps=1e-5):
         mean = x.mean(dim=-1, keepdim=True)
         var = (x - mean).square().mean(dim=-1, keepdim=True)
     else:
-        m = _time_mask(x.shape[-1], valid, x.device)
+        m = _time_mask(x.shape[-1], valid, x.device, x.dtype)
         cnt = m.sum(dim=-1, keepdim=True).clamp_min(1.0)
         mean = (x * m).sum(dim=-1, keepdim=True) / cnt
         var = ((x - mean).square() * m).sum(dim=-1, keepdim=True) / cnt
@@ -104,9 +105,10 @@ class ContentVec(nn.Module):
         self.final_proj = tnn.Linear(EMBED_DIM, FINAL_DIM)
 
     def feature_extractor_forward(self, wav, sample_valid=None):
-        """(B, T) -> (B, T', 512) conv features; features beyond the threaded
-        valid length are zeroed after each layer."""
-        x = wav[:, None, :].float()
+        """(B, T) -> (B, T', 512) conv features in the parameters' dtype;
+        features beyond the threaded valid length are zeroed after each
+        layer."""
+        x = wav[:, None, :].to(self.post_extract_proj.w.dtype)
         valid = sample_valid
         for layer, (_, k, s) in zip(self.feature_extractor, CONV_LAYERS):
             x = layer.conv(x, stride=s)
@@ -116,12 +118,19 @@ class ContentVec(nn.Module):
                 x = _group_norm_per_channel(x, layer.norm.scale, layer.norm.bias, valid)
             x = tnn.gelu_exact(x)
             if valid is not None:
-                x = x * _time_mask(x.shape[-1], valid, x.device)
+                x = x * _time_mask(x.shape[-1], valid, x.device, x.dtype)
         return x.transpose(1, 2)
 
-    def forward(self, wav, sample_valid=None):
-        """(B, T) @16 kHz -> (B, T', 256) content features
-        (``extract_content_features``)."""
+    def forward(self, wav, sample_valid=None, compute_dtype=None):
+        """(B, T) @16 kHz -> (B, T', 256) f32 content features
+        (``extract_content_features``), computed in the parameters' dtype.
+
+        ``compute_dtype=torch.bfloat16`` runs the whole extractor on a bf16
+        cast of every parameter (LayerNorms too, whose statistics stay f32),
+        as the JAX package casts its tree; the output is upcast to f32."""
+        if compute_dtype is not None and compute_dtype != self.final_proj.w.dtype:
+            casts = {n: p.to(compute_dtype) for n, p in self.named_parameters()}
+            return functional_call(self, casts, (wav, sample_valid))
         feats = self.feature_extractor_forward(wav, sample_valid)
         b, t_frames, _ = feats.shape
         samples_per_frame = wav.shape[-1] // t_frames

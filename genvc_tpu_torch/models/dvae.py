@@ -95,13 +95,15 @@ def _mask_t(x, valid_len):
 
 class DVAE(nn.Module):
     """Parameters as the JAX tree: ``encoder`` and ``codebook.embed`` (D, N);
-    with ``trainable`` also ``decoder`` and the codebook's EMA statistics."""
+    with ``trainable`` also ``decoder`` and the codebook's EMA statistics;
+    with ``decoder`` a frozen dVAE that also decodes (the GPT stage's
+    listening samples)."""
 
-    def __init__(self, cfg: DVAEConfig, trainable: bool = False):
+    def __init__(self, cfg: DVAEConfig, trainable: bool = False, decoder: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = _Encoder(cfg)
-        if trainable:
+        if trainable or decoder:
             self.decoder = _Decoder(cfg)
         self.codebook = _Codebook(cfg, ema=trainable)
 

@@ -11,10 +11,14 @@ an ``nn.ModuleList`` (the JAX tree's stacked leading axis is split at load).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from genvc_tpu_torch.models import perceiver
 from genvc_tpu_torch.ops import flash_attention as fa
@@ -77,6 +81,13 @@ class Block(nn.Module):
         self.attn = _Attn(d)
         self.ln_2 = tnn.LayerNorm(d)
         self.mlp = _MLP(d)
+
+    def forward(self, h, attend, heads: int):
+        """The block over a whole sequence; ``attend(q, k, v)`` attends the
+        (B, heads, T, hd) heads."""
+        x = self.ln_1(h)
+        q, k, v = (tnn.split_heads(a, heads) for a in self.attn.c_attn(x).chunk(3, dim=-1))
+        return self.mlp_forward(h + self.attn.c_proj(tnn.merge_heads(attend(q, k, v))))
 
     def mlp_forward(self, h):
         x = self.ln_2(h)
@@ -147,14 +158,50 @@ def build_prefix_emb(model: GPT, cond_latents, text_tokens, text_length):
     return prefix, valid
 
 
-def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash"):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save the
+    outputs of products without batch dimensions (a block's four weight
+    products, ``aten.mm`` under ``x @ w``), recompute the rest. The attention
+    kernels are ctypes calls inside an autograd Function, outside the
+    dispatcher: they run again in the recompute."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block: Block, h, attend, heads: int, remat):
+    """``block(h)`` under activation checkpointing. The block's parameters
+    are inputs of the checkpointed function: under ``functional_call`` the
+    module holds the substituted tensors only while the forward runs, and the
+    recompute comes later, in the backward."""
+    items = list(block.named_parameters())  # the substituted tensors, if any
+    names = [n for n, _ in items]
+
+    def run(h, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (h, attend, heads))
+
+    context = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+               if remat == "dots" else noop_context_fn)
+    return checkpoint(run, h, *(t for _, t in items), use_reentrant=False,
+                      context_fn=context)
+
+
+def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash",
+                 remat=False):
     """Full-sequence causal forward (``gpt.core_forward``). h: (B, T, D);
     key_valid: (B, T) bool. ``attn_impl="flash"`` (default) sends every
     block's attention through ``ops.flash_attention`` (the kernels on the
     card, their plain versions on the CPU; differentiable), as the JAX package
     routes it on its accelerator; ``"xla"`` is the JAX package's dense-bias
     path (causal + key-padding bias, ``ops.nn.attention``) differentiated by
-    autograd."""
+    autograd.
+
+    ``remat=True`` checkpoints each block: the backward recomputes its
+    activations, the attention forward (K4) included. ``remat="dots"`` saves
+    the block's weight products and recomputes the rest (``_dots_policy``).
+    Either gives the same loss and gradients as ``remat=False``."""
+    if remat not in (False, True, "dots"):
+        raise ValueError(f"remat {remat!r}: False, True or 'dots'")
     b, t, _ = h.shape
     kv = key_valid if key_valid is not None else torch.ones(
         b, t, dtype=torch.bool, device=h.device)
@@ -169,11 +216,8 @@ def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash
     else:
         raise ValueError(f"attn_impl {attn_impl!r}: 'flash' or 'xla'")
     for block in core.blocks:
-        x = block.ln_1(h)
-        q, k, v = (tnn.split_heads(a, cfg.heads)
-                   for a in block.attn.c_attn(x).chunk(3, dim=-1))
-        a = tnn.merge_heads(attend(q, k, v))
-        h = block.mlp_forward(h + block.attn.c_proj(a))
+        h = (_remat_block(block, h, attend, cfg.heads, remat) if remat
+             else block(h, attend, cfg.heads))
     return core.ln_f(h)
 
 
@@ -226,14 +270,14 @@ def forward_latent(model: GPT, text_inputs, text_lengths, audio_codes,
 
 def forward_train(model: GPT, text_inputs, text_lengths, audio_codes, wav_lengths,
                   cond_mels=None, cond_lens=None, cond_latents=None,
-                  fix_condition_embeddings=False, attn_impl="flash"):
+                  fix_condition_embeddings=False, attn_impl="flash", remat=False):
     """Teacher-forced training forward and losses (``gpt.forward_train``, its
     loss branch): text_inputs (B, Wt) content codes and audio_codes (B, Wm)
     zero-padded, text_lengths (B,), wav_lengths (B,) in samples; cond_mels
     (B, 80, Tc) with cond_lens (B,) in samples, or cond_latents (B, 32, D).
     ``fix_condition_embeddings`` cuts the Perceiver off the gradient (its
-    parameters get zero gradients). Returns (loss_text, loss_mel, top10
-    accuracy, mel_logits)."""
+    parameters get zero gradients); ``remat`` as :func:`core_forward`.
+    Returns (loss_text, loss_mel, top10 accuracy, mel_logits)."""
     cfg = model.cfg
     b, wt = text_inputs.shape
     wm = audio_codes.shape[1]
@@ -263,7 +307,7 @@ def forward_train(model: GPT, text_inputs, text_lengths, audio_codes, wav_length
     mel_keep = mpos <= code_lengths[:, None]
     key_valid = torch.cat([torch.ones(b, n_cond, dtype=torch.bool, device=dev),
                            text_keep, mel_keep], dim=1)
-    h = core_forward(model.core, emb, cfg, key_valid, attn_impl)
+    h = core_forward(model.core, emb, cfg, key_valid, attn_impl, remat)
     enc = model.final_norm(h[:, n_cond:])
     text_logits = model.text_head(enc[:, : wt + 2])
     mel_logits = model.mel_head(enc[:, -(wm + 2):])

@@ -3,8 +3,9 @@ teacher-forced step (``genvc_tpu/train/gpt_stage.py``).
 
 The frozen ContentVec and the acoustic / content dVAEs tokenize the raw
 waveform batch on the device without gradients (reference
-``format_batch_on_device``, gpt_trainer.py:198-254), in full f32: one
-rounding can flip a VQ code, and the codes are the training targets. The
+``format_batch_on_device``, gpt_trainer.py:198-254), in full f32 by default:
+one rounding can flip a VQ code, and the codes are the training targets
+(``content_dtype`` opts the ContentVec into bf16). The
 trainable GPT then computes the weighted dual cross-entropy (text 0.01, mel
 1.0) and AdamW with weight decay only on weights and clipping at 1.0 updates
 it (``train.optim``).
@@ -50,10 +51,14 @@ class FrozenModules:
 
 
 def _dvae(tree, cfg, device):
+    """A frozen dVAE; it keeps the tree's decoder where the tree has one (the
+    acoustic dVAE decodes the listening samples' codes)."""
+    keep = {"encoder": tree["encoder"], "codebook": {"embed": tree["codebook"]["embed"]}}
+    if "decoder" in tree:
+        keep["decoder"] = tree["decoder"]
     with torch.device("meta"):
-        m = dvae.DVAE(ckpt_lib.dvae_config(cfg))
-    ckpt_lib.assign(m, {"encoder": tree["encoder"],
-                        "codebook": {"embed": tree["codebook"]["embed"]}}, device)
+        m = dvae.DVAE(ckpt_lib.dvae_config(cfg), decoder="decoder" in keep)
+    ckpt_lib.assign(m, keep, device)
     return m.eval()
 
 
@@ -81,11 +86,16 @@ def make_frozen(cfg: GenVCConfig, tree: dict, mel_norms, device) -> FrozenModule
 
 
 @torch.no_grad()
-def prepare_features(frozen: FrozenModules, batch: dict) -> dict:
+def prepare_features(frozen: FrozenModules, batch: dict, content_dtype=None) -> dict:
     """``format_batch_on_device``: batch wav (B, 1, T) at 24 kHz,
     wav_lengths (B,), conditioning (B, 1, 1, Tc), cond_lens (B,),
     text_lengths (B,) -> cond_mels, audio_codes, text_inputs and the
-    lengths."""
+    lengths.
+
+    ``content_dtype=torch.bfloat16`` runs the whole ContentVec in bf16 (an
+    opt-in speed knob); its features are upcast to f32 before the content
+    dVAE, whose VQ argmin runs in f32. The acoustic path, whose codes are the
+    training labels, stays f32."""
     wav = batch["wav"][:, 0, :]
     cond = batch["conditioning"][:, 0, 0, :]
     cond_mels = mel_mod.mel_torchaudio(cond, frozen.style_spec, frozen.mel_norms)
@@ -101,7 +111,8 @@ def prepare_features(frozen: FrozenModules, batch: dict) -> dict:
 
     content_wav = resample(wav, frozen.sample_rate, frozen.content_sample_rate)
     pad = int(frozen.text_frame_rate * frozen.content_sample_rate)
-    feats = frozen.contentvec(torch.nn.functional.pad(content_wav, (0, pad)))
+    feats = frozen.contentvec(torch.nn.functional.pad(content_wav, (0, pad)),
+                              compute_dtype=content_dtype)
     text_codes = frozen.content_dvae.get_codebook_indices(feats.transpose(1, 2))
     # audio codes widened to cover code_lengths = ceil(wav / stride) + 3 (the
     # pad value 0 is replaced by stop tokens in the formatting)
@@ -131,7 +142,7 @@ class GPTTrainState:
 
 
 def loss_fn(model, tensors, feats, text_ce_weight, mel_ce_weight,
-            fix_condition_embeddings=True, attn_impl="flash"):
+            fix_condition_embeddings=True, attn_impl="flash", remat=False):
     """The weighted loss and the metrics, with ``tensors`` (name -> parameter)
     substituted into ``model``."""
     loss_text, loss_mel, top10, _ = functional_call(
@@ -139,7 +150,8 @@ def loss_fn(model, tensors, feats, text_ce_weight, mel_ce_weight,
         (feats["text_inputs"], feats["text_lengths"], feats["audio_codes"],
          feats["wav_lengths"]),
         dict(cond_mels=feats["cond_mels"], cond_lens=feats["cond_lens"],
-             fix_condition_embeddings=fix_condition_embeddings, attn_impl=attn_impl))
+             fix_condition_embeddings=fix_condition_embeddings, attn_impl=attn_impl,
+             remat=remat))
     loss = text_ce_weight * loss_text + mel_ce_weight * loss_mel
     return loss, {"loss": loss, "loss_text_ce": loss_text, "loss_mel_ce": loss_mel,
                   "top10acc": top10}
@@ -156,26 +168,25 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
     ``attn_impl``: "flash" (the attention kernels: forward K4, backward K5
     and K6) or "xla" (dense-bias attention differentiated by autograd). The
     JAX package's step defaults to "xla" for a measurement on its TPU; the
-    port's to the kernels. ``grad_norms`` adds per-module gradient L2 norms
-    (``grad_norm/<module>``, ``grad_norm/total``). The step's phases are
-    profiler spans: ``genvc.features``, ``genvc.forward``, ``genvc.backward``,
+    port's to the kernels. ``remat`` (True or "dots") checkpoints the GPT's
+    blocks (``gpt.core_forward``): the same loss and gradients, less
+    activation memory, the attention forward run again in the backward.
+    ``content_dtype`` as :func:`prepare_features`. ``grad_norms`` adds
+    per-module gradient L2 norms (``grad_norm/<module>``,
+    ``grad_norm/total``). The step's phases are profiler spans:
+    ``genvc.features``, ``genvc.forward``, ``genvc.backward``,
     ``genvc.optimizer``."""
-    if remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP §A.5, the old A12)")
-    if content_dtype is not None:
-        raise NotImplementedError("a reduced-precision ContentVec (content_dtype) "
-                                  "is not ported yet (ROADMAP §A.5, the old A12)")
 
     def _loss(state, feats):
         tensors = state.params.tensors(compute_dtype)
         if compute_dtype is not None:
             feats = dict(feats, cond_mels=feats["cond_mels"].to(compute_dtype))
         return loss_fn(state.model, tensors, feats, text_ce_weight, mel_ce_weight,
-                       fix_condition_embeddings, attn_impl)
+                       fix_condition_embeddings, attn_impl, remat)
 
     def train_step(state: GPTTrainState, batch: dict, frozen: FrozenModules):
         with record_function("genvc.features"):
-            feats = prepare_features(frozen, batch)
+            feats = prepare_features(frozen, batch, content_dtype)
         with record_function("genvc.forward"):
             loss, metrics = _loss(state, feats)
         flat = state.params.flat
@@ -200,7 +211,7 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
 
     @torch.no_grad()
     def eval_step(state: GPTTrainState, batch: dict, frozen: FrozenModules):
-        _, metrics = _loss(state, prepare_features(frozen, batch))
+        _, metrics = _loss(state, prepare_features(frozen, batch, content_dtype))
         return metrics
 
     return train_step, eval_step

@@ -15,6 +15,7 @@ import re
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -67,10 +68,49 @@ class Logger:
     def print(self, msg: str):
         print(msg, flush=True)
 
+    def log_histograms(self, tree: dict, step: int | None = None, prefix: str = "grad"):
+        """Per-top-level-module value summaries of a tree (gradients or
+        parameters, in the JAX package's layout, e.g. ``checkpoint.export_tree``
+        of a module): the reference's ``wandb.watch(model)`` surface
+        (gpt_trainer.py:48). Each module's values, gathered in the JAX
+        package's leaf order (dict keys sorted), go to wandb as a histogram
+        and to the jsonl as ``<prefix>/<module>/min``, ``/max`` and ``/l2``.
+        It copies the tree to the host: call it on a cadence, not every
+        step."""
+        for mod, sub in tree.items():
+            leaves = [np.asarray(x.detach().cpu() if torch.is_tensor(x) else x).ravel()
+                      for x in _leaves(sub)]
+            if not leaves:
+                continue
+            flat = np.concatenate(leaves)
+            if self.wandb is not None:
+                self.wandb.log({f"{prefix}/{mod}": self.wandb.Histogram(flat)}, step=step)
+            if self.jsonl is not None:
+                rec = {f"{prefix}/{mod}/min": float(flat.min()),
+                       f"{prefix}/{mod}/max": float(flat.max()),
+                       f"{prefix}/{mod}/l2": float(np.linalg.norm(flat))}
+                if step is not None:
+                    rec["step"] = step
+                self.jsonl.write(json.dumps(rec) + "\n")
+                self.jsonl.flush()
+
     def close(self):
         if self.jsonl is not None:
             self.jsonl.close()
             self.jsonl = None
+
+
+def _leaves(node):
+    """A tree's leaves in ``jax.tree.leaves`` order: dict keys sorted, lists
+    in order; ``None`` is no leaf."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _leaves(node[k])
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _leaves(v)
+    elif node is not None:
+        yield node
 
 
 class CheckpointManager:

@@ -153,17 +153,17 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
     :class:`gpt_stage.GPTTrainState`.
 
     bf16=True runs the trainable GPT in bfloat16 on f32 masters (the frozen
-    tokenizers stay f32). ``attn_impl="flash"`` (default) runs the attention
-    kernels, forward and backward; "xla" the dense path under autograd.
-    Tensor parallelism (``n_model > 1``), remat and a bf16 ContentVec are not
-    ported and raise."""
+    tokenizers stay f32; ``content_bf16`` runs the frozen ContentVec in bf16).
+    ``attn_impl="flash"`` (default) runs the attention kernels, forward and
+    backward; "xla" the dense path under autograd. ``remat`` (True or
+    "dots") checkpoints the GPT's blocks. At each epoch's end the listening
+    samples of the first eval batch are written to
+    ``<output_path>/eval_samples/e<epoch>_self.wav`` and
+    ``e<epoch>_cross<row>.wav`` (and logged to wandb when on). Tensor
+    parallelism (``n_model > 1``) is not ported and raises."""
     if n_model > 1:
         raise NotImplementedError("tensor parallelism (n_model > 1) is not ported "
                                   "yet (ROADMAP §A.6, the old A13)")
-    if remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP §A.5, the old A12)")
-    if content_bf16:
-        raise NotImplementedError("content_bf16 is not ported yet (ROADMAP §A.5, the old A12)")
     dev = resolve_device(device)
     logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
                          cfg.output_path)
@@ -216,18 +216,44 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
         text_ce_weight=ma.gpt_loss_text_ce_weight,
         mel_ce_weight=ma.gpt_loss_mel_ce_weight,
         fix_condition_embeddings=ma.gpt_fix_condition_embeddings,
-        compute_dtype=torch.bfloat16 if bf16 else None, attn_impl=attn_impl,
+        compute_dtype=torch.bfloat16 if bf16 else None, remat=remat, attn_impl=attn_impl,
         # per-module gradient norms ride the wandb gate, like the reference's
         # wandb.watch(model) (gpt_trainer.py:48)
-        grad_norms=cfg.use_wandb)
+        grad_norms=cfg.use_wandb,
+        content_dtype=torch.bfloat16 if content_bf16 else None)
+
+    def on_epoch_end(state, epoch, step):
+        # listening samples: a self-reconstruction and a cross-speaker
+        # conversion (reference generate_eval_sample, gpt_trainer.py:146-170);
+        # a failure is logged, the training goes on
+        try:
+            from genvc_tpu_torch.dsp.audio_io import write_wav
+            from genvc_tpu_torch.train.eval_samples import generate_eval_samples
+
+            feats = gpt_stage.prepare_features(frozen, to_device(next(iter(eval_loader)), dev))
+            self_wav, cross_wav, tgt = generate_eval_samples(
+                state.model, frozen.acoustic_dvae, feats, frozen.mel_norms,
+                torch.Generator(device=dev).manual_seed(epoch))
+            sample_dir = os.path.join(cfg.output_path, "eval_samples")
+            os.makedirs(sample_dir, exist_ok=True)
+            sr = cfg.audio.sample_rate
+            write_wav(os.path.join(sample_dir, f"e{epoch}_self.wav"), self_wav, sr)
+            write_wav(os.path.join(sample_dir, f"e{epoch}_cross{tgt}.wav"), cross_wav, sr)
+            if logger.wandb is not None:
+                logger.wandb.log({
+                    "eval/self_recon": logger.wandb.Audio(self_wav, sample_rate=sr),
+                    "eval/cross_speaker": logger.wandb.Audio(cross_wav, sample_rate=sr)})
+        except Exception as e:
+            logger.print(f"eval sample generation failed: {e!r}")
+
     try:
         return loop.fit(state, lambda s, b: train_step(s, b, frozen), train_loader,
                         epochs=cfg.epochs, logger=logger,
                         eval_step=lambda s, b: eval_step(s, b, frozen),
                         eval_loader=eval_loader, ckpt=ckpt, save_step=cfg.save_step,
                         print_step=cfg.print_step, to_device=lambda b: to_device(b, dev),
-                        start_step=state.step, max_steps=max_steps,
-                        max_eval_batches=max_eval_batches)
+                        start_step=state.step, on_epoch_end=on_epoch_end,
+                        max_steps=max_steps, max_eval_batches=max_eval_batches)
     finally:
         logger.close()
 

@@ -2,16 +2,15 @@
 (the repo's ``train_genVC.py``; the reference recipe's hyperparameters).
 
 Usage:
-    python -m genvc_tpu_torch.train_genVC [--bf16] [--device cuda] \
-        [--train_metafile ...] [--max_steps N]
+    python -m genvc_tpu_torch.train_genVC [--bf16] [--remat 1|dots] \
+        [--content_bf16] [--device cuda] [--train_metafile ...] [--max_steps N]
     python -m genvc_tpu_torch.train_genVC --smoke --device cpu   # 2 steps on
                                                                  # synthetic data
 
-Flags of modes the port does not have yet exit with code 2: ``--remat
-1|dots`` and ``--content_bf16`` (queued in ROADMAP §A.5, the rest of
-training) and ``--n_model`` above 1 (§A.6, parallelism). The other training
-stages have their own CLIs: ``train_audio_dvae`` and ``train_content_dvae``
-(stages 1-2) and ``train_vocoder`` (stage 4).
+``--n_model`` above 1 (tensor parallelism, queued in ROADMAP §A.6) exits
+with code 2. The other training stages have their own CLIs:
+``train_audio_dvae`` and ``train_content_dvae`` (stages 1-2) and
+``train_vocoder`` (stage 4).
 """
 
 from __future__ import annotations
@@ -22,8 +21,6 @@ import sys
 _NOT_PORTED = [
     (lambda a: a.n_model > 1, "--n_model > 1 (tensor parallelism) is not ported yet "
                               "(ROADMAP §A.6, the old A13)"),
-    (lambda a: a.remat != "0", "--remat 1|dots is not ported yet (ROADMAP §A.5, the old A12)"),
-    (lambda a: a.content_bf16, "--content_bf16 is not ported yet (ROADMAP §A.5, the old A12)"),
 ]
 
 
@@ -101,9 +98,11 @@ def main(argv=None) -> int:
                     help="bfloat16 compute on the trainable GPT "
                          "(f32 master params; frozen tokenizers stay f32)")
     ap.add_argument("--remat", default="0", choices=["0", "1", "dots"],
-                    help="activation rematerialization (only 0 is ported)")
+                    help="activation checkpointing of the GPT's blocks: 1 = whole "
+                         "blocks, dots = keep the weight products")
     ap.add_argument("--content_bf16", action="store_true",
-                    help="bf16 frozen ContentVec (not ported)")
+                    help="bf16 frozen ContentVec (its features go to the content "
+                         "dVAE in f32; the acoustic labels stay f32)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     for not_ported, message in _NOT_PORTED:
@@ -130,7 +129,9 @@ def main(argv=None) -> int:
         smoke_overrides(cfg, "exp/smoke_assets_torch")
         max_steps, max_eval_batches = 2, 1
     state = run_gpt_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
-                             bf16=args.bf16, device=args.device)
+                             bf16=args.bf16,
+                             remat={"0": False, "1": True, "dots": "dots"}[args.remat],
+                             content_bf16=args.content_bf16, device=args.device)
     print(f"trained to step {state.step}")
     return 0
 

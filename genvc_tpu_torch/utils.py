@@ -1,9 +1,14 @@
 """Host utilities (``genvc_tpu/utils.py``): the reference's feature plot
-(utils.py:269-277), used by the dVAE stage's end-of-epoch images."""
+(utils.py:269-277), used by the dVAE stage's end-of-epoch images, and a
+profiler context for the CLI's ``--profile``."""
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
+import torch
 
 
 def plot_feat(feat, path: str | None = None):
@@ -22,3 +27,28 @@ def plot_feat(feat, path: str | None = None):
         fig.savefig(path, dpi=80, bbox_inches="tight")
     plt.close(fig)
     return fig
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's kernels when a CUDA device is present), written on every exit
+    from the block to ``<log_dir>/trace.json`` in Chrome's trace format
+    (chrome://tracing, Perfetto or TensorBoard's profile plugin). A falsy
+    ``log_dir`` traces nothing."""
+    if not log_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -67,11 +67,11 @@ def test_torch_gpt_runner_loads_a_gpt_checkpoint(tmp_path):
 
 
 def test_torch_gpt_runner_refuses_what_is_not_ported(tmp_path):
+    """Tensor parallelism is the one mode still refused (``remat`` and
+    ``content_bf16`` run: tests/test_torch_train_remat.py)."""
     cfg = _cfg(tmp_path)
-    for kw, item in ((dict(n_model=2), "A13"), (dict(remat="dots"), "A12"),
-                     (dict(content_bf16=True), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_gpt_training(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A13"):
+        run_gpt_training(cfg, device="cpu", n_model=2)
 
 
 def test_torch_train_cli_smoke_on_cpu(tmp_path, monkeypatch, capsys):
@@ -89,10 +89,8 @@ def test_torch_train_cli_refuses_and_needs_a_card(tmp_path, monkeypatch, capsys)
     from genvc_tpu_torch import train_genVC
 
     monkeypatch.chdir(tmp_path)
-    for flags, item in ((["--n_model", "2"], "A13"), (["--remat", "dots"], "A12"),
-                        (["--remat", "1"], "A12"), (["--content_bf16"], "A12")):
-        assert train_genVC.main(["--smoke", *flags]) == 2
-        assert item in capsys.readouterr().err
+    assert train_genVC.main(["--smoke", "--n_model", "2"]) == 2
+    assert "A13" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_genVC.main(["--smoke"])
