@@ -16,7 +16,9 @@ forward, O and LSE; bf16 on the tensor cores) at the latent pass's and the
 training step's shapes and at its tile edges, K5 / K6 (flash-attention
 backward: dq; dk and dv; bf16 on the tensor cores) at the training step's
 shapes (T = 184 and 328) and at tile edges, with device times (a
-``torch.profiler`` trace) beside SDPA's backward. It holds K1 and K3 to the
+``torch.profiler`` trace) beside SDPA's backward; K4, K5 and K6 also at the
+tensor-parallel step's 2 local heads (B = 8, T = 184, bf16) and K3 at a
+server shard's 4 rows. It holds K1 and K3 to the
 JAX package's e4m3 rule at overflow (0x7F / 0xFF stored past 464, read as
 +-480) and records each build's registers, spills and shared memory
 (``-Xptxas -v``). Kernel / library ratios are printed for K1, K2, K4 and
@@ -45,16 +47,18 @@ int8 linears and with an fp8 cache (K1 on the card) must give the same
 lengths and audio within 1e-3; beam_sample (3 beams) with one noise sequence handed to both
 the same tokens; two GPT training steps (K4 / K5 / K6 on the card) must
 give the same codes, losses, gradient norms and parameters. The port's CLI
-then streams one utterance with ``--bf16 --profile DIR`` on a small bundle:
-the trace must hold K1's two CUDA kernels.
+then streams one utterance with ``--bf16 --profile DIR`` on a small bundle
+of 64 mel tokens, whose last window steps past the cap (fault C.7): the
+trace must hold K1's two CUDA kernels.
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
 256 ch; default HiFi-GAN) with seeded random weights on the repo's sample
 wavs: ``synthesize_streaming`` (3 runs), ``synthesize`` on a 7.68 s source
-(two segments; 2 runs), ``synthesize_batch`` / ``synthesize_streaming_batch``
-with 4 utterances (2 runs each), each after one warm-up, and a ``StreamServer``
-of 8 slots draining 16 streams submitted at once (one warm-up drain, 1 timed);
+(two segments; 1 run), ``synthesize_batch`` / ``synthesize_streaming_batch``
+with 4 utterances (1 run each), each after one warm-up, and a ``StreamServer``
+of 8 slots draining 16 streams submitted at once (1 drain after
+``warmup_admission``);
 and on the 1.54 s source offline beam search and beam_sample (4 beams), group
 beam search (4 beams, 2 groups), contrastive search (4 candidates) and, at
 the engine level, constrained beam search (4 beams, one two-token phrase),
@@ -62,13 +66,14 @@ each once to warm up and once timed. It checks the audio and that the
 kernels of each path were launched as often as the path says: K1 30 times
 per lockstep decode step (a search's forward at B = beams or candidates),
 K4 30 times per latent pass, K3 30 times per per-row decode step of the
-server (and the others not at all there).
+server (and the others not at all there). Phase 6d runs there, on that
+pipeline.
 
 Phase 3b builds the quantized serving configuration at flagship width (bf16
 GPT, ``quantize="int8"``, ``kv_cache_dtype="fp8"``) from the same weights:
 its GPT's weight bytes beside the bf16 GPT's, prefill logits within 0.05
 relative of the bf16 pipeline's, one decode step's device time and kernel
-launches in both, then ``synthesize_streaming`` (3 runs after a warm-up),
+launches in both, then ``synthesize_streaming`` (1 run after a warm-up),
 ``synthesize`` on the 7.68 s source (1 run) and the 16-stream drain into 8
 slots (1 drain after ``warmup_admission``), each checked as in phase 3 (K1
 on the e4m3 cache 30 per lockstep step, K3 30 per per-row step, K4 30 per
@@ -100,13 +105,30 @@ the vocoder stage's latent pass (the frozen f32 GPT, B = 64, T = 64) and
 timed beside masked SDPA. Stage 4 then runs at the recipe's full width
 through ``train.runner.run_vocoder_training`` (``train_vocoder``'s config:
 batch 64 of 0.64 s segments, all four families at ``VocoderConfig()``, a
-seeded 30 x 1024 GPT written through ``export_gpt``): 1 warm-up and 4 timed
+seeded 30 x 1024 GPT written through ``export_gpt``): 1 warm-up and 2 timed
 steps and a checkpoint (K4 = 30 a step, K1 = K3 = K5 = K6 = 0), then steps
 on one fixed batch timed to a device sync and two traced for device busy
 time and launches; and stages 1 and 2 at their recipes through
 ``run_vae_training`` (batch 256 of 6 s mel crops; batch 64 of 6 s crops
 through the 12-layer ContentVec), 3 steps and a checkpoint each, then fixed-
 batch steps with peak memory.
+
+Phase 6 runs the parallel paths with ranks that share the card over gloo
+(``genvc_tpu_torch.parallel.launch.run_ranks``; NCCL refuses two ranks on
+one device): a transport probe (``all_reduce``, ``all_gather`` and
+``broadcast`` on CUDA tensors, the all-reduce timed); 6a, the GPT step
+tensor-parallel on 2 ranks at full width and depth (30 x 1024, each rank 2
+of the 4 heads) on phase 4's fixed batch, and 6b, 2 x 2 (data x model) on 4
+ranks at 2 layers, each 2 steps in f32 and in bf16 on f32 masters against
+the one-process step on the same card and batch (loss, gradient norm,
+every parameter), K4 = K5 = K6 = 30 (6a) a rank a step; 6c, stages 1, 2
+and 4 data-parallel on 2 ranks at their recipes' widths with the batch cut
+(dVAE codebooks against the one-process step, GAN losses, spectral-norm
+buffers equal across the ranks); 6d, ``StreamServer(slots=8,
+mesh=make_mesh(n_data=2, devices=[cuda:0, cuda:0]))`` at flagship width,
+bf16, greedy: 8 streams within 2e-4 of unsharded 4-slot servers, then 16
+streams with K3 30 a shard's decode step and the drain's RTF and first-audio
+latency beside phase 3's.
 
 Prints measurements on earlier lines, the kernel table as one JSON line, the
 GPU's name and power limit, and as the last line
@@ -143,6 +165,10 @@ TOL = 2e-2  # K1 vs plain: same casts; bf16 probabilities and bf16 output
 # bf16 O is then rounded to bf16 on both sides, so one rounding may land a
 # bf16 ulp apart (2^-8 relative). LSE comes from the f32 p on both sides.
 FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# the tensor-parallel GPT step's shape (phase 6a): each of 2 model ranks
+# attends 2 of the 4 heads, q, k and v strided views of its (B, T, 3 x 2 x
+# 256) projection; a ninth entry is the head count (4 where it is absent)
+TP_CASE = (8, 184, 256, torch.bfloat16, 0, 0, False, True, 2)
 LSE_TOL = 1e-4
 # (B, T, hd, dtype, masked key tail of the last row, masked leading keys of
 # row 0, row 0 all masked, causal): the latent pass's shapes (T = 308 for a
@@ -167,7 +193,8 @@ FLASH_CASES = [(1, 308, 256, torch.bfloat16, 0, 0, False, True),
                (2, 184, 72, torch.bfloat16, 9, 0, False, True),
                (2, 184, 256, torch.bfloat16, 0, 37, False, True),
                (2, 136, 256, torch.bfloat16, 11, 0, True, False),
-               (2, 136, 64, torch.float32, 11, 0, True, False)]
+               (2, 136, 64, torch.float32, 11, 0, True, False),
+               TP_CASE]
 # K1 cases beyond the flagship shape (B, T): batch rows x cache lengths
 DECODE_SHAPES = [(b, t) for b in (1, 4, 8, 16) for t in (128, 384, 1024)]
 
@@ -436,9 +463,10 @@ def check_flash_attention(fa):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     recs = {}
-    for i, (b, t, hd, dt, tail, lead, unseen, causal) in enumerate(FLASH_CASES):
-        h = 4
-        q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=100 + i)
+    for i, case in enumerate(FLASH_CASES):
+        b, t, hd, dt, tail, lead, unseen, causal = case[:8]
+        h = case[8] if len(case) > 8 else 4
+        q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=100 + i, h=h)
         if lead:
             valid[0, :lead] = False
         if unseen:
@@ -469,7 +497,7 @@ def check_flash_attention(fa):
         if causal and not (tail or lead or unseen):
             lib_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
             lib_causal_dev, _ = device_ms(lambda: sdpa(q, k, v, is_causal=True))
-        rec = {"B": b, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
+        rec = {"B": b, "H": h, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
                "masked_tail": tail, "masked_lead": lead, "row_without_keys": unseen,
                "causal": causal, "max_abs_err": float(err_o.max()),
                "max_abs_err_lse": err_lse, "tol": tol, "tol_lse": LSE_TOL, "ms": ms,
@@ -485,9 +513,9 @@ def check_flash_attention(fa):
                "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / peak
                else "operations", "bytes": n_bytes, "flops": flops}
         print("flash_attention " + json.dumps(rec), flush=True)
-        recs[b, t, hd, dt, tail, lead, unseen, causal] = rec
+        recs[case] = rec
     return (recs[1, 308, 256, torch.bfloat16, 0, 0, False, True],
-            recs[8, 184, 256, torch.bfloat16, 0, 0, False, True])
+            recs[8, 184, 256, torch.bfloat16, 0, 0, False, True], recs[TP_CASE])
 
 
 # K5 / K6 vs the plain backward computed in f32 from the same inputs: the
@@ -511,9 +539,11 @@ BWD_CASES = [(8, 184, 256, torch.bfloat16, 0, 0, False, True),
              (2, 184, 16, torch.float32, 23, 0, False, True),
              (2, 136, 64, torch.float32, 11, 0, True, False),
              (2, 328, 256, torch.bfloat16, 45, 37, False, True),
-             (2, 136, 72, torch.bfloat16, 11, 0, True, False)]
-# the rows timed on the device as well (T = 184 and 328 at the step's B = 8)
-BWD_DEVICE_ROWS = (0, 1)
+             (2, 136, 72, torch.bfloat16, 11, 0, True, False),
+             TP_CASE]
+# the rows timed on the device as well (T = 184 and 328 at the step's B = 8,
+# and the tensor-parallel step's 2 local heads)
+BWD_DEVICE_ROWS = (0, 1, 8)
 
 
 def check_flash_backward(fa):
@@ -527,9 +557,10 @@ def check_flash_backward(fa):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     recs = []
-    for i, (b, t, hd, dt, tail, lead, unseen, causal) in enumerate(BWD_CASES):
-        h = 4
-        q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=300 + i)
+    for i, case in enumerate(BWD_CASES):
+        b, t, hd, dt, tail, lead, unseen, causal = case[:8]
+        h = case[8] if len(case) > 8 else 4
+        q, k, v, valid = flash_inputs(b, t, hd, dt, tail, seed=300 + i, h=h)
         if lead:
             valid[0, :lead] = False
         if unseen:
@@ -584,7 +615,7 @@ def check_flash_backward(fa):
                       ("dq", 5 * n * elt + stats, 3 * 2 * b * h * t * t * hd * frac),
                       ("dkdv", 6 * n * elt + stats, 4 * 2 * b * h * t * t * hd * frac),
                       ("both", 7 * n * elt + stats, 5 * 2 * b * h * t * t * hd * frac))}
-        rec = {"B": b, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
+        rec = {"B": b, "H": h, "T": t, "hd": hd, "dtype": str(dt).replace("torch.", ""),
                "masked_tail": tail, "masked_lead": lead, "row_without_keys": unseen,
                "causal": causal, "max_abs_err": errs, "tol": tol,
                "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "ms": ms, "plain_ms": plain_ms,
@@ -622,7 +653,8 @@ def update_inputs(b, cache_dtype, q_dtype, seed, T=FLAGSHIP["T"], pos_dtype=torc
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     per = da.split_len(b * H, T, da.SPLIT_BLOCKS_PER_SM * n_sm)
     edge = per * max(1, -(-T // per) // 2)
-    pos[0], pos[1], pos[2], pos[3], pos[4] = 0, T - 1, T + 7, edge - 1, min(edge, T - 1)
+    special = [0, T - 1, T + 7, edge - 1, min(edge, T - 1)][:b]
+    pos[:len(special)] = torch.tensor(special, device="cuda")
     valid = torch.arange(T, device="cuda")[None, :] <= pos[:, None]
     bias = torch.where(valid, 0.0, -1e9).float()
     return q, kn, vn, ck, cv, bias, pos.to(pos_dtype)
@@ -640,15 +672,17 @@ def check_decode_attention_update(da):
     caches, every layer, bit-equal to the plain version's, and the row past
     the cache end untouched. Also ``out`` against the cache write followed by
     K1 (the same split and arithmetic: equal). Returns the timing records of
-    the 8- and 16-slot configurations at T = 384 (bf16 and e4m3 caches, bf16
-    q), keyed (B, cache)."""
+    the 4-, 8- and 16-slot configurations at T = 384 (bf16 and e4m3 caches,
+    bf16 q), keyed (B, cache)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     L, H, T, hd = FLAGSHIP["L"], FLAGSHIP["H"], FLAGSHIP["T"], FLAGSHIP["hd"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     main = {}
     bf, f8, i64 = torch.bfloat16, torch.float8_e4m3fn, torch.int64
-    cases = [(8, bf, bf, T, i64), (16, bf, bf, T, i64), (8, f8, bf, T, i64),
+    # 4 rows: a sharded server's shard (8 slots over 2 shards, phase 6d)
+    cases = [(8, bf, bf, T, i64), (16, bf, bf, T, i64), (4, bf, bf, T, i64),
+             (8, f8, bf, T, i64),
              (16, f8, bf, T, i64), (8, bf, torch.float32, T, i64),
              (8, f8, torch.float32, T, torch.int32), (8, bf, bf, 128, i64),
              (8, bf, bf, 1024, i64)]
@@ -950,7 +984,7 @@ def check_native_audio(tmp):
 def check_cli_profile(pipeline, da, fa, tmp, gpu):
     """``python -m genvc_tpu_torch.infer --streaming --bf16 --profile DIR``
     (in this process) on a small bundle (the phase-2 configuration, GPT 2 x
-    64 with 69 mel tokens, seeded weights written by ``export_bundle``) and a
+    64 with 64 mel tokens, seeded weights written by ``export_bundle``) and a
     0.5 s source: the
     conversion writes its wav and ``DIR/trace.json``, and the trace holds
     K1's two CUDA kernels (``decode_split_logits``, ``decode_split_pv``).
@@ -965,12 +999,12 @@ def check_cli_profile(pipeline, da, fa, tmp, gpu):
 
     cfg = small_config(pipeline)
     tree = pipeline.random_tree(cfg, seed=3, device="cpu")
-    # 66 decode steps at most, not 602 (random weights never stop early), so
-    # the trace stays small: 69 = 605 - 67 x 8 mel tokens, so the streaming
-    # windows end 2 past the cap, as at the default; mel positions cut to match
-    cfg.model_args.gpt_max_audio_tokens = 69
+    # 61 generated tokens at most, not 602 (random weights never stop
+    # early), so the trace stays small; the streaming windows step past the
+    # cap to position 67 of the 67-row table, which clamps (fault C.7)
+    cfg.model_args.gpt_max_audio_tokens = 64
     tree["config"] = cfg.to_dict()
-    tree["gpt"]["mel_pos"] = tree["gpt"]["mel_pos"][: 69 + 3]
+    tree["gpt"]["mel_pos"] = tree["gpt"]["mel_pos"][: 64 + 3]
     # a bundle's dVAE carries its decoder: draw the trainable form
     tree["content_dvae"] = dvae.init_tree(torch.Generator().manual_seed(4), checkpoint.dvae_config(
         cfg.content_dvae_config), trainable=True)
@@ -1381,7 +1415,7 @@ def check_quantized(pipeline, engine, gpt_model, server_cls, da, fa, gpu, tree, 
 
     pipe.synthesize_streaming(src, ref, verbose=False)  # warm-up
     lat, rtf = [], []
-    for run in range(3):
+    for run in range(1):
         with Launches(da, fa) as n:
             wav, latency, r = pipe.synthesize_streaming(src, ref, verbose=False)
         steps = pipe.last_timing["decode_steps"]
@@ -2110,7 +2144,7 @@ def _timed_steps(step, n_timed):
     return out
 
 
-VOCODER_STEPS = 5  # 1 warm-up + 4 timed
+VOCODER_STEPS = 3  # 1 warm-up + 2 timed
 
 
 def check_vocoder_training(da, fa, cfg, paths, gpu, t_latent):
@@ -2118,7 +2152,7 @@ def check_vocoder_training(da, fa, cfg, paths, gpu, t_latent):
     through ``run_vocoder_training`` (``vocoder_recipe``): batch 64 of
     8-token (0.64 s) segments, all four discriminator families at
     ``VocoderConfig()``, the 30 x 1024 frozen GPT, f32 with TF32 off; 1
-    warm-up and 4 timed steps, then a checkpoint; K4 = 30 a step (the latent
+    warm-up and 2 timed steps, then a checkpoint; K4 = 30 a step (the latent
     pass), K1 = K3 = K5 = K6 = 0. Then one fixed batch: steps timed to a
     device sync and two traced for device time and launches. Returns the
     runner run's launch counts."""
@@ -2255,6 +2289,321 @@ def check_dvae_training(da, fa, tmp, gpu, paths, meta):
     return total
 
 
+# ---- phase 6: parallelism, ranks sharing the one card over gloo
+
+# 6a / 6b hold the multi-rank GPT step against the one-process step on the
+# same card, weights and batch, after PAR_STEPS steps (lr 1e-4 halved from
+# the second, Adam's eps 1e-3 as the CPU tests: with the recipe's 1e-8 an
+# element whose gradient sits at the noise floor takes a normalized update
+# of ~lr that differs between any two summation orders). f32: the
+# row-parallel and data sums in other orders (~1e-6 relative); the
+# parameters within 1 % of the lr. bf16 on f32 masters: every product and
+# each rank's partial sum round at 2^-8 before the all-reduce, so the loss
+# within 2e-2 and the gradient norm within 5e-2 relative, the parameters
+# within a fifth of the lr.
+PAR_STEPS = 2
+PAR_TOL = {"f32": {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-6},
+           "bf16": {"loss": 2e-2, "grad_norm": 5e-2, "params": 2e-5}}
+PAR_LR = 1e-4
+# the all-reduce's sizes timed in the transport probe: one activation of
+# the 6a step (B x T x D = 8 x 184 x 1024) and 2^24 elements (64 MB in f32)
+TRANSPORT_SIZES = (8 * 184 * 1024, 2 ** 24)
+
+
+def _gpt_programs(tmp, frozen, cfg, batch, world, n_model, layers):
+    """The GPT step's one-process references, run here (f32, then bf16;
+    the whole flat vector saved after the steps), and the rank programs that
+    repeat them on a ``(world / n_model, n_model)`` mesh."""
+    import dataclasses
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch.parallel import rank_checks
+
+    gcfg = dataclasses.replace(ckpt.gpt_config(cfg), layers=layers)
+    base = {"cfg": cfg, "frozen": frozen,
+            "mel_norms": ckpt.load_mel_norms(cfg.model_args.mel_norm_file),
+            "gpt_cfg": gcfg, "seed": 0, "batch": batch, "steps": PAR_STEPS,
+            "attn_impl": "flash", "lr": PAR_LR, "eps": 1e-3, "weight_decay": 1e-6}
+    dtypes = ("f32", "bf16")
+    paths = {dt: os.path.join(tmp, f"par_ref_{world}_{dt}.pt") for dt in dtypes}
+    refs = rank_checks.gpt_train(0, "cuda:0", dict(base, n_model=1, dtypes=dtypes,
+                                                   save_flat=paths))
+    torch.cuda.empty_cache()
+    return [("gpt_train", dict(base, n_model=n_model, dtypes=dtypes, reference=paths))], \
+        dict(zip(dtypes, refs))
+
+
+def _check_gpt(outs, refs, world, n_model, layers, gpu):
+    """Holds the ranks' GPT steps (``outs[rank] = [[f32 result, bf16
+    result]]``, one ``gpt_train`` program) to PAR_TOL: loss and gradient norm every step, every rank's
+    parameters against its shard of the saved vector; the model group's
+    ranks read one batch and keep their replicated parameters bit-equal;
+    each rank launches K4, K5 and K6 once a block a step at its local heads.
+    Prints the record before raising; returns the launch totals."""
+    rec = {"world": world, "n_data": world // n_model, "n_model": n_model, "layers": layers,
+           "backend": outs[0][0][0]["backend"], "gpu": gpu}
+    totals = {"flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkdv": 0}
+    failures = []
+    for i, dtype in enumerate(("f32", "bf16")):
+        tol, ref = PAR_TOL[dtype], refs[dtype]
+        per = [o[0][i] for o in outs]
+        for o in per:
+            where = f"parallel {world} ranks {dtype} rank {o['rank']}"
+            for m, want in zip(o["metrics"], ref["metrics"]):
+                for key, rel in (("loss", tol["loss"]), ("grad_norm/total", tol["grad_norm"])):
+                    if abs(m[key] - want[key]) > rel * abs(want[key]):
+                        failures.append(f"{where}: {key} {m[key]} vs one process {want[key]}")
+            if o["ref_err"] > tol["params"]:
+                failures.append(f"{where}: parameters {o['ref_err']} from one process's")
+            for n in o["launches"]:
+                if n != {k: layers for k in totals}:
+                    failures.append(f"{where}: launches {n} a step, expected {layers} each")
+                for k in totals:
+                    totals[k] += n[k]
+        for group in range(world // n_model):
+            members = per[group * n_model:(group + 1) * n_model]
+            if len({o["batch_digest"] for o in members}) != 1 or \
+                    len({o["replicated_digest"] for o in members}) != 1:
+                failures.append(f"parallel {world} ranks {dtype}: model group {group} read "
+                                "different batches or holds different replicas")
+        rec[dtype] = {
+            "tol": tol, "loss": [[m["loss"] for m in o["metrics"]] for o in per],
+            "one_process_loss": [m["loss"] for m in ref["metrics"]],
+            "grad_norm": [[m["grad_norm/total"] for m in o["metrics"]] for o in per],
+            "one_process_grad_norm": [m["grad_norm/total"] for m in ref["metrics"]],
+            "param_max_abs_err": [o["ref_err"] for o in per],
+            "step_ms": [o["ms"] for o in per], "one_process_step_ms": ref["ms"],
+            "launches_per_rank_step": per[0]["launches"][-1],
+            "collectives_per_rank_step": per[0]["collectives"][-1]}
+    print(f"parallel_gpt_{world} " + json.dumps(rec), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def _stage_programs(paths, meta, voc_cfg, gpt_path):
+    """6c: stages 1, 2 and 4 at their recipes' widths with the batch cut
+    (stage 1: 8 x 2 s mel crops into the 1024-token dVAE; stage 2: 4 x 2 s
+    through the 12-layer ContentVec into the 256-token dVAE; stage 4: 4 x
+    0.64 s through the four discriminator families against the frozen
+    30 x 1024 GPT), one step each: this process's step on the whole batch,
+    and the rank programs that split it over the data ranks."""
+    import random
+
+    import numpy as np
+
+    from genvc_tpu_torch import checkpoint as ckpt
+    from genvc_tpu_torch.data.dataset import WaveformDVAEDataset
+    from genvc_tpu_torch.models import dvae, hifigan
+    from genvc_tpu_torch.parallel import rank_checks
+    from genvc_tpu_torch.train import runner, vocoder_stage
+    from genvc_tpu_torch.train_audio_dvae import recipe_config as audio_recipe
+    from genvc_tpu_torch.train_content_dvae import recipe_config as content_recipe
+
+    def np_tree(node):
+        if isinstance(node, dict):
+            return {k: np_tree(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [np_tree(v) for v in node]
+        return node.detach().cpu().numpy() if torch.is_tensor(node) else node
+
+    programs = []
+    norms = np.ones(80, np.float32)
+    for cfg, rows in ((audio_recipe(meta, meta, os.path.join(HERE, "pre_trained",
+                                                             "mel_stats.npy")), 8),
+                      (content_recipe(meta, meta, paths["contentvec"]), 4)):
+        cfg.max_wav_len = 2 * cfg.audio.dvae_sample_rate
+        ds = WaveformDVAEDataset(meta, False, cfg.audio.dvae_sample_rate, cfg.max_wav_len)
+        spec = {"vae_cfg": cfg, "mel_norms": norms, "steps": 1,
+                "tree": np_tree(dvae.init_tree(torch.Generator().manual_seed(21),
+                                               ckpt.dvae_config(cfg), trainable=True)),
+                "batch": {"wav": ds.collate(list(range(rows)), random.Random(0))["wav"]}}
+        if cfg.feat_type != "Mel-spectrogram":
+            spec["contentvec"] = paths["contentvec"]
+        programs.append(("dvae_train", spec))
+    vcfg = voc_cfg.vocoder_config
+    train_ds, _ = runner.datasets(voc_cfg)
+    programs.append(("gan_train", {
+        "cfg": voc_cfg, "mel_norms": norms,
+        "frozen": {k: paths[k] for k in ("contentvec", "acoustic_dvae", "content_dvae")},
+        "gpt_cfg": ckpt.gpt_config(voc_cfg), "gpt_tree": gpt_path,
+        "vocoder_cfg": vcfg, "families": None, "steps": 1, "lr": 2e-4, "eps": 1e-8,
+        "gen_tree": np_tree(hifigan.generator_to_weight_norm(
+            hifigan.init_tree(torch.Generator().manual_seed(22), vcfg))),
+        "disc_tree": ckpt.export_tree(vocoder_stage.init_discriminators(
+            torch.Generator().manual_seed(23), vcfg)),
+        "batch": train_ds.collate(list(range(4)), random.Random(0))}))
+    refs = [getattr(rank_checks, fn)(0, "cuda:0", spec) for fn, spec in programs]
+    torch.cuda.empty_cache()
+    return programs, refs
+
+
+def _check_stages(outs, refs, programs, gpu):
+    """6c's holds: the dVAE codebooks against the one-process step at
+    ``tests/test_multichip.py``'s bounds (cluster_size 1e-5 / 1e-6, embed
+    1e-4 / 1e-5) and equal across the ranks; the GAN step's losses within
+    1e-4 relative and the spectral-norm buffers bit-equal across the ranks.
+    Prints the record before raising."""
+    import numpy as np
+
+    from genvc_tpu_torch.models import hifigan
+
+    rec, failures = {"gpu": gpu}, []
+    for i, name in enumerate(("audio_dvae", "content_dvae")):
+        got, want = outs[0][i]["tree"]["codebook"], refs[i]["tree"]["codebook"]
+        if outs[0][i]["codebook_digest"] != outs[1][i]["codebook_digest"]:
+            failures.append(f"{name}: the ranks' codebooks differ")
+        errs = {}
+        for key, rtol, atol in (("cluster_size", 1e-5, 1e-6), ("embed", 1e-4, 1e-5)):
+            err = np.abs(got[key] - want[key])
+            errs[key] = float(err.max())
+            if not (err <= atol + rtol * np.abs(want[key])).all():
+                failures.append(f"{name}: codebook {key} max |err| {errs[key]}")
+        rec[name] = {"rows": len(programs[i][1]["batch"]["wav"]), "codebook_max_abs_err": errs,
+                     "loss": outs[0][i]["metrics"][0]["loss"],
+                     "one_process_loss": refs[i]["metrics"][0]["loss"],
+                     "step_ms": [o[i]["ms"] for o in outs], "one_process_ms": refs[i]["ms"]}
+    got, want = outs[0][2], refs[2]
+    if got["sn_digest"] != outs[1][2]["sn_digest"] or not got["n_sn"]:
+        failures.append("gan: the ranks' spectral-norm buffers differ")
+    for key, v in want["metrics"][0].items():
+        if abs(got["metrics"][0][key] - v) > 1e-4 * abs(v):
+            failures.append(f"gan: {key} {got['metrics'][0][key]} vs one process {v}")
+    rec["gan"] = {"rows": 4, "families": list(hifigan.ALL_FAMILIES),
+                  "metrics": got["metrics"][0], "one_process_metrics": want["metrics"][0],
+                  "sn_buffers": got["n_sn"], "step_ms": [o[2]["ms"] for o in outs],
+                  "one_process_ms": want["ms"]}
+    print("parallel_stages " + json.dumps(rec), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def check_parallel(tmp, gpu, paths, meta, voc_cfg):
+    """Phase 6a-c in two launches of ranks on cuda:0 over gloo. Two ranks:
+    the transport probe (the three collectives on CUDA tensors, the
+    all-reduce timed), 6a (the GPT step tensor-parallel at 30 x 1024) and 6c
+    (stages 1, 2 and 4 data-parallel); four ranks: 6b (the GPT step 2 x 2 at
+    2 layers). The one-process references run here first. Returns the
+    phase's launch counts by path."""
+    import random
+
+    from genvc_tpu_torch.parallel import launch, rank_checks
+    from genvc_tpu_torch.train import runner
+    from genvc_tpu_torch.train_genVC import recipe_config
+
+    # phase 4's fixed batch: 8 rows of 50-token texts (T = 184)
+    cfg = recipe_config(meta, meta, os.path.join(HERE, "pre_trained", "mel_stats.npy"),
+                        paths["acoustic_dvae"], paths["content_dvae"], paths["contentvec"],
+                        output_path=os.path.join(tmp, "exp_par"), batch_size=8, num_workers=4)
+    cfg.model_args.min_text_length = cfg.model_args.max_text_length = 50
+    train_ds, _ = runner.datasets(cfg)
+    batch = train_ds.collate(list(range(8)), random.Random(0))
+    frozen = {k: paths[k] for k in ("contentvec", "acoustic_dvae", "content_dvae")}
+    none = {"decode_attention_layer": 0, "decode_attention_update_layer": 0, "int8_matmul": 0}
+
+    t0 = time.perf_counter()
+    tp_programs, tp_refs = _gpt_programs(tmp, frozen, cfg, batch, 2, 2, 30)
+    stage_programs, stage_refs = _stage_programs(paths, meta, voc_cfg,
+                                                 os.path.join(tmp, "gpt_flagship.pth"))
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = launch.run_ranks(
+        rank_checks.sequence, 2, backend="gloo", devices=["cuda:0"] * 2, timeout=600,
+        args=([("transport", {"sizes": TRANSPORT_SIZES})] + tp_programs + stage_programs,))
+    ranks_s = time.perf_counter() - t0
+    print("parallel transport " + json.dumps({
+        "ranks": [o[0] for o in outs], "gpu": gpu}), flush=True)
+    out = {"parallel_tp": dict(none, **_check_gpt([o[1:2] for o in outs], tp_refs, 2, 2, 30,
+                                                  gpu))}
+    _check_stages([o[2:] for o in outs], stage_refs, stage_programs, gpu)
+
+    t0 = time.perf_counter()
+    dp_programs, dp_refs = _gpt_programs(tmp, frozen, cfg, batch, 4, 2, 2)
+    dp_refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = launch.run_ranks(rank_checks.sequence, 4, backend="gloo", devices=["cuda:0"] * 4,
+                            timeout=600, args=(dp_programs,))
+    dp_ranks_s = time.perf_counter() - t0
+    out["parallel_dp_tp"] = dict(none, **_check_gpt(outs, dp_refs, 4, 2, 2, gpu))
+    print("parallel wall " + json.dumps({
+        "references_2_rank_launch_s": refs_s, "launch_2_ranks_s": ranks_s,
+        "references_4_rank_launch_s": dp_refs_s, "launch_4_ranks_s": dp_ranks_s}), flush=True)
+    return out
+
+
+def check_sharded_serving(pipe, server_cls, srcs, refs, hold_srcs, da, fa, gpu, unsharded):
+    """6d: ``StreamServer(slots=8, mesh=make_mesh(n_data=2, devices=[cuda:0,
+    cuda:0]))`` at flagship width, bf16, greedy. The hold: the 8 streams of
+    ``hold_srcs``, one admission wave per shard, against two unsharded
+    4-slot servers given each shard's streams, audio within 2e-4 (the pool's rows set K3's split
+    and the products' shapes, so the unsharded reference of a 4-row shard is
+    a 4-slot pool). Then 16 streams drained once after
+    ``warmup_admission``: K3 30 a decode step of each shard (4 rows), no
+    other kernel; aggregate RTF and first-audio p50 / p95 beside phase 3's
+    unsharded drain (``unsharded``)."""
+    import numpy as np
+
+    from genvc_tpu_torch.decode.engine import SamplerConfig
+    from genvc_tpu_torch.parallel.mesh import make_mesh
+
+    layers = pipe.gpt_cfg.layers
+    sampler = pipe.sampler
+    pipe.sampler = SamplerConfig(temperature=1.0, top_k=1, top_p=1.0,
+                                 repetition_penalty=1.0, do_sample=False)
+    mesh = make_mesh(n_data=2, devices=["cuda:0", "cuda:0"])
+    try:
+        sharded = server_cls(pipe, slots=8, mesh=mesh)
+        if [len(sh.carry) for sh in sharded._shards] != [4, 4]:
+            raise AssertionError("sharded server: not 2 shards of 4 rows")
+        sids = [sharded.submit(s, r) for s, r in zip(hold_srcs, refs)]
+        sharded.drain()
+        worst = 0.0
+        for part in range(2):
+            plain = server_cls(pipe, slots=4)
+            psids = [plain.submit(s, r) for s, r in zip(hold_srcs[4 * part:4 * part + 4],
+                                                          refs[4 * part:4 * part + 4])]
+            plain.drain()
+            for sid, psid in zip(sids[4 * part:4 * part + 4], psids):
+                got, want = sharded.result(sid)[0], plain.result(psid)[0]
+                if got.shape != want.shape:
+                    raise AssertionError(f"sharded server: {got.shape} vs {want.shape}")
+                worst = max(worst, float(np.abs(got - want).max()) if got.size else 0.0)
+        if worst > 2e-4:
+            raise AssertionError(f"sharded server: audio {worst} from the unsharded servers'")
+
+        server = server_cls(pipe, slots=8, mesh=mesh)
+        server.warmup_admission()
+        total_s = sum(s.shape[-1] for s in srcs) / 16000
+        with Launches(da, fa) as n:
+            t0 = time.perf_counter()
+            sids = [server.submit(s, r, arrival_t=t0) for s, r in zip(srcs, refs)]
+            server.drain()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        m = server.metrics()
+        results = [server.result(sid) for sid in sids]
+        for wav, _ in results:
+            check_audio("sharded serving", wav, pipe.sample_rate)
+        if m["completed"] != len(srcs):
+            raise AssertionError(f"sharded serving: {m['completed']} of {len(srcs)} completed")
+        expect("sharded serving K3", n.k3, layers * m["decode_steps"])
+        expect_none("sharded serving", n, ("k1", "k4", "k5", "k6"))
+    finally:
+        pipe.sampler = sampler
+    lat_ms = np.asarray([stats["latency_s"] for _, stats in results]) * 1e3
+    rec = {"slots": 8, "shards": 2, "rows_per_shard": 4, "devices": ["cuda:0", "cuda:0"],
+           "hold_streams": 8, "hold_max_abs_err": worst, "hold_tol": 2e-4,
+           "streams": len(srcs), "source_s": total_s, "wall_s": elapsed,
+           "aggregate_rtf": elapsed / total_s,
+           "first_audio_ms_p50": float(np.percentile(lat_ms, 50)),
+           "first_audio_ms_p95": float(np.percentile(lat_ms, 95)),
+           "decode_steps": m["decode_steps"], "k3_launches": n.k3,
+           "k3_per_shard_step": n.k3 / m["decode_steps"],
+           "unsharded_drain_rtf_median": unsharded, "gpu": gpu}
+    print("sharded_serving " + json.dumps(rec), flush=True)
+    return n.counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2272,6 +2621,12 @@ def main() -> int:
     from genvc_tpu_torch.serving.server import StreamServer
 
     begin = time.perf_counter()
+    marks = [begin]
+
+    def mark(name):  # wall time of each phase, printed at its end
+        marks.append(time.perf_counter())
+        print(f"{name}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -2295,8 +2650,9 @@ def main() -> int:
     k3_recs = check_decode_attention_update(da)
     k3 = k3_recs[8, "bfloat16"]
     check_fp8_overflow(da)
-    k4, k4_train = check_flash_attention(fa)
-    k56, k56_328 = check_flash_backward(fa)
+    k4, k4_train, k4_tp = check_flash_attention(fa)
+    k56, k56_328, k56_tp = check_flash_backward(fa)
+    mark("phase 1")
 
     # ---- phase 2: a small f32 configuration, card vs CPU
     with tempfile.TemporaryDirectory() as tmp:
@@ -2313,6 +2669,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         check_small_train_against_cpu(da, fa, tmp)
         cli_profile = check_cli_profile(pipeline, da, fa, tmp, gpu)
+    mark("phase 2")
 
     # ---- phase 3: every path at flagship width, bf16
     cfg = pipeline.flagship_config()
@@ -2352,7 +2709,7 @@ def main() -> int:
     seconds = tiled.shape[-1] / 16000
     pipe.synthesize(tiled, ref)  # warm-up
     rtf = []
-    for run in range(2):
+    for run in range(1):
         with Launches(da, fa) as n:
             t0 = time.perf_counter()
             wav = pipe.synthesize(tiled, ref)
@@ -2382,7 +2739,7 @@ def main() -> int:
              lambda: pipe.synthesize_streaming_batch(srcs, refs, verbose=False)[0])):
         run_batch()  # warm-up
         rtf = []
-        for run in range(2):
+        for run in range(1):
             with Launches(da, fa) as n:
                 t0 = time.perf_counter()
                 wavs = run_batch()
@@ -2407,7 +2764,13 @@ def main() -> int:
     by_path.update(check_search_modes(pipe, engine, src, ref, da, fa, gpu, reorder_rec))
     # serving: 16 streams (the batch's 4 sources x 4) into 8 slots at once
     by_path["serving"], bf16["drain_rtf_median"] = check_serving(
-        pipe, StreamServer, srcs * 4, [ref, ref2] * 8, da, fa, gpu)
+        pipe, StreamServer, srcs * 4, [ref, ref2] * 8, da, fa, gpu, runs=1)
+    mark("phase 3")
+    # phase 6d (run here, on this pipeline): the pool sharded over 2 shards
+    by_path["sharded_serving"] = check_sharded_serving(
+        pipe, StreamServer, srcs * 4, [ref, ref2] * 8, [src, src2] * 4, da, fa, gpu,
+        bf16["drain_rtf_median"])
+    mark("phase 6d")
 
     # ---- phase 3b: the quantized serving configuration at flagship width
     by_path.update(check_quantized(pipeline, engine, gpt_model, StreamServer, da, fa, gpu,
@@ -2415,6 +2778,7 @@ def main() -> int:
                                    [ref, ref2] * 8))
     del pipe, tree
     torch.cuda.empty_cache()
+    mark("phase 3b")
 
     # ---- phase 4: GPT training at flagship width
     with tempfile.TemporaryDirectory() as tmp:
@@ -2425,15 +2789,20 @@ def main() -> int:
             da, fa, tmp, gpu, paths, meta)
         by_path.update(remat_launches)
         by_path.update(content_launches)
+        mark("phase 4")
 
         # ---- phase 5: the other training stages
-        t0 = time.perf_counter()
         check_small_stages_against_cpu(da, fa, tmp)
         voc_cfg, (b_voc, t_voc) = vocoder_recipe(tmp, paths, meta, VOCODER_STEPS)
         k4_voc = check_flash_vocoder_shape(fa, b_voc, t_voc)
         by_path["vocoder"] = check_vocoder_training(da, fa, voc_cfg, paths, gpu, t_voc)
         by_path["dvae"] = check_dvae_training(da, fa, tmp, gpu, paths, meta)
-        print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+        mark("phase 5")
+
+        # ---- phase 6: parallelism, ranks sharing the card over gloo (6d ran
+        # in phase 3, on its pipeline)
+        by_path.update(check_parallel(tmp, gpu, paths, meta, voc_cfg))
+        mark("phase 6a-c")
     print(f"chip_smoke: {time.perf_counter() - begin:.1f} s", flush=True)
 
     def launches(kernel):
@@ -2484,6 +2853,10 @@ def main() -> int:
         "training_shape": {key: k4_train[key] for key in (
             "B", "T", "ms", "library_ms", "library_causal_ms", "ratio", "ratio_causal",
             "bound_ms")},
+        "tp_shape": {key: k4_tp[key] for key in (
+            "B", "H", "T", "ms", "plain_ms", "library_ms", "library_causal_ms", "device_ms",
+            "library_device_ms", "library_causal_device_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
         "vocoder_shape": k4_voc}] + [{
         # K5 / K6: plain_ms and library_ms (SDPA's backward) are of the whole
         # backward, dq, dk and dv together; ms and bound_ms of the kernel alone
@@ -2500,6 +2873,11 @@ def main() -> int:
         "T328": {key: k56_328[key] for key in (
             f"{part}_ms", f"{part}_device_ms", "library_ms", "library_device_ms",
             "device_ratio")} | {"bound_ms": k56_328["bound_ms"][part]},
+        "tp_shape": {key: k56_tp[key] for key in (
+            "B", "H", "T", f"{part}_ms", f"{part}_device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "device_ratio")} | {
+            "bound_ms": k56_tp["bound_ms"][part], "bound_by": k56_tp["bound_by"][part],
+            "max_abs_err": max(k56_tp["max_abs_err"][g] for g in grads)},
         "ptxas": {f: info for f, info in bwd_build["functions"].items() if tag in f},
         "dynamic_smem_bytes": {t: bwd_build["dynamic_smem_bytes"][f"{part}_bf16_T{t}"]
                                for t in (184, 328)}}

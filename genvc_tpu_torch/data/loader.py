@@ -20,7 +20,10 @@ class BatchLoader:
     """num_shards/shard_index give data parallelism over processes: each
     reads a disjoint stride of the (epoch-shuffled, shared-seed) sample
     order, as torch's DistributedSampler (reference gpt_trainer.py:344-347).
-    The defaults are one process."""
+    The defaults are one process. A batch's random crops depend only on the
+    seed, the epoch and the batch's index, and batches come in index order
+    (the JAX loader seeds the crops by worker thread and yields batches as
+    they finish, so both depend on scheduling)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4,
@@ -112,13 +115,16 @@ class BatchLoader:
         cursor = {"i": 0}
 
         def worker(wid):
-            wrng = random.Random((self.seed, self.epoch, wid).__hash__())
             while not stop.is_set():
                 with lock:
                     i = cursor["i"]
                     if i >= len(batches):
                         break
                     cursor["i"] = i + 1
+                # the crops' random draws are seeded by the batch, not by the
+                # thread that happens to collate it: the ranks of one model
+                # group collate bit-identical batches at any worker count
+                wrng = random.Random(hash((self.seed, self.epoch, i)))
                 try:
                     batch = self._collate_substituting(batches[i], wrng)
                 except Exception as e:  # even the substituted batch failed
@@ -130,14 +136,21 @@ class BatchLoader:
                    for w in range(self.num_workers)]
         for t in threads:
             t.start()
+        # batches are yielded in index order, whichever thread finishes
+        # first: the ranks of one model group step on the same batch
         finished = 0
-        produced = 0
+        pending = {}
         try:
-            while finished < self.num_workers and produced < len(batches):
-                i, batch = q.get()
-                if i is None:
-                    finished += 1
-                    continue
+            for want in range(len(batches)):
+                while want not in pending and finished < self.num_workers:
+                    i, batch = q.get()
+                    if i is None:
+                        finished += 1
+                    else:
+                        pending[i] = batch
+                if want not in pending:
+                    break
+                batch = pending.pop(want)
                 if isinstance(batch, Exception):
                     # substitution already failed too — drop, but loudly
                     with self._stats_lock:
@@ -146,7 +159,6 @@ class BatchLoader:
                                    "total dropped: %d", batch,
                                    self.dropped_batches)
                     continue
-                produced += 1
                 yield batch
         finally:
             stop.set()

@@ -136,7 +136,9 @@ def _attend_cached(block: gpt_model.Block, h, state: DecodeState, layer_idx: int
             da.write_rows(state.cache_k[layer_idx], k, state.cur_index)
             da.write_rows(state.cache_v[layer_idx], v, state.cur_index)
         else:
-            ci = state.cur_index
+            # past the cache end the write lands on the last slot, as JAX's
+            # dynamic_update_slice clamps its start
+            ci = min(state.cur_index, state.cache_k.shape[3] - 1)
             state.cache_k[layer_idx, :, :, ci] = da.to_cache(k, state.cache_k.dtype)
             state.cache_v[layer_idx, :, :, ci] = da.to_cache(v, state.cache_v.dtype)
         if fused:
@@ -157,9 +159,12 @@ def _decode_forward(model: gpt_model.GPT, state: DecodeState,
     with ``return_hidden`` a third value: the post-``ln_f``, pre-
     ``final_norm`` hidden (B, D) f32 that contrastive search compares.
 
-    Per row, a position past the cache end is no error (an idle pool slot):
-    its key_valid write is dropped and the position embedding clamped, as
-    JAX drops out-of-range scatters and clamps gathers."""
+    A position past the cache end or the position table is no error, per
+    row (an idle pool slot) or in lockstep (a streaming window that steps
+    past the generation cap, fault C.7): the key_valid write is dropped, the
+    position embedding clamped to the table's last row and a lockstep cache
+    write clamped to the last slot, as JAX drops out-of-range scatters and
+    clamps gathers and ``dynamic_update_slice``."""
     cfg = model.cfg
     t = state.cache_k.shape[3]
     tok_emb = model.mel_embedding[state.last_token]
@@ -169,10 +174,9 @@ def _decode_forward(model: gpt_model.GPT, state: DecodeState,
         idx = state.cur_index.clamp(max=t - 1)
         state.key_valid[rows, idx] = state.key_valid[rows, idx] | (state.cur_index < t)
     else:
-        if state.cur_index >= t:
-            raise RuntimeError(f"KV cache of {t} slots is full")
-        pos_emb = model.mel_pos[state.n_generated]
-        state.key_valid[:, state.cur_index] = True
+        pos_emb = model.mel_pos[min(state.n_generated, model.mel_pos.shape[0] - 1)]
+        if state.cur_index < t:
+            state.key_valid[:, state.cur_index] = True
     h = (tok_emb + pos_emb)[:, None, :].to(model.compute_dtype)
     bias2 = torch.where(state.key_valid, 0.0, tnn.NEG_INF).float()
     for i, block in enumerate(model.core.blocks):

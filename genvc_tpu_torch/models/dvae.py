@@ -24,6 +24,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from genvc_tpu_torch.ops.conv import Conv1d, init_conv1d, nearest_upsample1d
+from genvc_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,17 +149,22 @@ class DVAE(nn.Module):
         """codes (B, T) -> (B, C, 4T) reconstruction (reference dvae.py:333-352)."""
         return self.decoder_forward(self.codebook.embed.T[codes].transpose(1, 2))
 
-    def forward(self, x):
+    def forward(self, x, data_group=None):
         """The training forward, :meth:`forward_train`."""
-        return self.forward_train(x)
+        return self.forward_train(x, data_group)
 
-    def forward_train(self, x):
+    def forward_train(self, x, data_group=None):
         """Training forward (reference dvae.py:363-381 in train mode): (B, C,
         T) features -> (recon_loss, commitment_loss, recon, new_codebook,
         codes). ``new_codebook`` is the EMA update of the three codebook
         buffers, returned and not applied (the train step applies it after
         the optimizer's update; an eval forward drops it). The EMA sums run as
-        f32 matmuls (TF32 off on the card), as the JAX package's HIGHEST."""
+        f32 matmuls (TF32 off on the card), as the JAX package's HIGHEST.
+
+        ``data_group``: ``x`` is this rank's rows of a global batch; the
+        code counts and the code-wise sums of ``z`` are all-reduced over the
+        group before the EMA (JAX's ``psum`` over ``axis_name``), so every
+        rank computes the global batch's codebook."""
         cfg = self.cfg
         cb = self.codebook
         z_btd = self.encode(x).transpose(1, 2)  # (B, T/4, D)
@@ -168,8 +174,13 @@ class DVAE(nn.Module):
             n_embed = cb.embed.shape[1]
             flat = z_btd.reshape(-1, z_btd.shape[-1]).float()
             onehot = F.one_hot(codes.reshape(-1), n_embed).float()
-            cluster_size = cb.cluster_size * cfg.decay + onehot.sum(0) * (1 - cfg.decay)
-            embed_avg = cb.embed_avg * cfg.decay + (flat.T @ onehot) * (1 - cfg.decay)
+            onehot_sum, embed_sum = onehot.sum(0), flat.T @ onehot
+            if data_group is not None:
+                both = collectives.all_reduce(
+                    torch.cat([onehot_sum[None], embed_sum]), data_group)
+                onehot_sum, embed_sum = both[0], both[1:]
+            cluster_size = cb.cluster_size * cfg.decay + onehot_sum * (1 - cfg.decay)
+            embed_avg = cb.embed_avg * cfg.decay + embed_sum * (1 - cfg.decay)
             n = cluster_size.sum()
             cluster = (cluster_size + cfg.eps) / (n + n_embed * cfg.eps) * n
             new_codebook = {"embed": embed_avg / cluster[None, :],

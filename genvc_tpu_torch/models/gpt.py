@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from genvc_tpu_torch.models import perceiver
 from genvc_tpu_torch.ops import flash_attention as fa
 from genvc_tpu_torch.ops import nn as tnn
+from genvc_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,43 +62,64 @@ class GPTConfig:
 
 
 class _Attn(nn.Module):
-    def __init__(self, d):
+    def __init__(self, d, n_model=1):
         super().__init__()
-        self.c_attn = tnn.Linear(d, 3 * d)
-        self.c_proj = tnn.Linear(d, d)
+        self.c_attn = tnn.Linear(d, 3 * d // n_model)
+        self.c_proj = tnn.Linear(d // n_model, d)
 
 
 class _MLP(nn.Module):
-    def __init__(self, d):
+    def __init__(self, d, n_model=1):
         super().__init__()
-        self.c_fc = tnn.Linear(d, 4 * d)
-        self.c_proj = tnn.Linear(4 * d, d)
+        self.c_fc = tnn.Linear(d, 4 * d // n_model)
+        self.c_proj = tnn.Linear(4 * d // n_model, d)
+
+
+def _row_parallel(lin: tnn.Linear, x, group):
+    """A row-parallel product: the partial products summed over ``group``,
+    then the (replicated) bias added once."""
+    y = collectives.reduce_from_model(x @ lin.w.to(x.dtype), group)
+    return y + lin.b.to(x.dtype)
 
 
 class Block(nn.Module):
-    def __init__(self, d):
+    """A pre-LN block. With ``n_model > 1`` it holds one rank's Megatron
+    shards: ``c_attn`` (D, 3D/n) with its heads' columns of q, k and v,
+    ``c_fc`` (D, 4D/n) column-parallel, each ``c_proj`` (D/n or 4D/n, D)
+    row-parallel with the whole bias (``parallel.mesh.shard_tree``)."""
+
+    def __init__(self, d, n_model=1):
         super().__init__()
         self.ln_1 = tnn.LayerNorm(d)
-        self.attn = _Attn(d)
+        self.attn = _Attn(d, n_model)
         self.ln_2 = tnn.LayerNorm(d)
-        self.mlp = _MLP(d)
+        self.mlp = _MLP(d, n_model)
 
-    def forward(self, h, attend, heads: int):
+    def forward(self, h, attend, heads: int, group=None):
         """The block over a whole sequence; ``attend(q, k, v)`` attends the
-        (B, heads, T, hd) heads."""
+        (B, heads, T, hd) heads. ``group``: the model group of a sharded
+        block (``heads`` is then the rank's local heads)."""
         x = self.ln_1(h)
+        if group is None:
+            q, k, v = (tnn.split_heads(a, heads) for a in self.attn.c_attn(x).chunk(3, dim=-1))
+            return self.mlp_forward(h + self.attn.c_proj(tnn.merge_heads(attend(q, k, v))))
+        x = collectives.copy_to_model(x, group)
         q, k, v = (tnn.split_heads(a, heads) for a in self.attn.c_attn(x).chunk(3, dim=-1))
-        return self.mlp_forward(h + self.attn.c_proj(tnn.merge_heads(attend(q, k, v))))
+        h = h + _row_parallel(self.attn.c_proj, tnn.merge_heads(attend(q, k, v)), group)
+        return self.mlp_forward(h, group)
 
-    def mlp_forward(self, h):
+    def mlp_forward(self, h, group=None):
         x = self.ln_2(h)
-        return h + self.mlp.c_proj(tnn.gelu_new(self.mlp.c_fc(x)))
+        if group is None:
+            return h + self.mlp.c_proj(tnn.gelu_new(self.mlp.c_fc(x)))
+        x = collectives.copy_to_model(x, group)
+        return h + _row_parallel(self.mlp.c_proj, tnn.gelu_new(self.mlp.c_fc(x)), group)
 
 
 class Core(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, n_model: int = 1):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(cfg.model_dim) for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(Block(cfg.model_dim, n_model) for _ in range(cfg.layers))
         self.ln_f = tnn.LayerNorm(cfg.model_dim)
 
 
@@ -106,15 +128,21 @@ def _table(n, d):
 
 
 class GPT(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """``n_model > 1``: the blocks hold one rank's tensor-parallel shards
+    (:class:`Block`); everything else is whole on every rank."""
+
+    def __init__(self, cfg: GPTConfig, n_model: int = 1):
         super().__init__()
         d = cfg.model_dim
+        if cfg.heads % n_model:
+            raise ValueError(f"{cfg.heads} heads do not divide over n_model={n_model}")
         self.cfg = cfg
+        self.n_model = n_model
         self.text_embedding = _table(cfg.number_text_tokens, d)
         self.mel_embedding = _table(cfg.num_audio_tokens, d)
         self.text_pos = _table(cfg.text_positions, d)
         self.mel_pos = _table(cfg.mel_positions, d)
-        self.core = Core(cfg)
+        self.core = Core(cfg, n_model)
         self.final_norm = tnn.LayerNorm(d)
         self.text_head = tnn.Linear(d, cfg.number_text_tokens)
         self.mel_head = tnn.Linear(d, cfg.num_audio_tokens)
@@ -169,7 +197,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_block(block: Block, h, attend, heads: int, remat):
+def _remat_block(block: Block, h, attend, heads: int, remat, group=None):
     """``block(h)`` under activation checkpointing. The block's parameters
     are inputs of the checkpointed function: under ``functional_call`` the
     module holds the substituted tensors only while the forward runs, and the
@@ -178,7 +206,7 @@ def _remat_block(block: Block, h, attend, heads: int, remat):
     names = [n for n, _ in items]
 
     def run(h, *tensors):
-        return functional_call(block, dict(zip(names, tensors)), (h, attend, heads))
+        return functional_call(block, dict(zip(names, tensors)), (h, attend, heads, group))
 
     context = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
                if remat == "dots" else noop_context_fn)
@@ -187,7 +215,7 @@ def _remat_block(block: Block, h, attend, heads: int, remat):
 
 
 def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash",
-                 remat=False):
+                 remat=False, model_group=None):
     """Full-sequence causal forward (``gpt.core_forward``). h: (B, T, D);
     key_valid: (B, T) bool. ``attn_impl="flash"`` (default) sends every
     block's attention through ``ops.flash_attention`` (the kernels on the
@@ -199,7 +227,12 @@ def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash
     ``remat=True`` checkpoints each block: the backward recomputes its
     activations, the attention forward (K4) included. ``remat="dots"`` saves
     the block's weight products and recomputes the rest (``_dots_policy``).
-    Either gives the same loss and gradients as ``remat=False``."""
+    Either gives the same loss and gradients as ``remat=False``.
+
+    ``model_group``: the tensor-parallel group of a core built with
+    ``n_model`` > 1; each block attends its ``heads / n_model`` local heads
+    and sums its row-parallel products over the group. Without it the code
+    is the single-card one."""
     if remat not in (False, True, "dots"):
         raise ValueError(f"remat {remat!r}: False, True or 'dots'")
     b, t, _ = h.shape
@@ -215,9 +248,16 @@ def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash
             return tnn.attention(q, k, v, bias=bias)
     else:
         raise ValueError(f"attn_impl {attn_impl!r}: 'flash' or 'xla'")
+    heads = cfg.heads
+    if model_group is not None:
+        heads //= torch.distributed.get_world_size(model_group)
     for block in core.blocks:
-        h = (_remat_block(block, h, attend, cfg.heads, remat) if remat
-             else block(h, attend, cfg.heads))
+        if remat:
+            h = _remat_block(block, h, attend, heads, remat, model_group)
+        elif model_group is None:
+            h = block(h, attend, heads)
+        else:
+            h = block(h, attend, heads, model_group)
     return core.ln_f(h)
 
 
@@ -270,14 +310,22 @@ def forward_latent(model: GPT, text_inputs, text_lengths, audio_codes,
 
 def forward_train(model: GPT, text_inputs, text_lengths, audio_codes, wav_lengths,
                   cond_mels=None, cond_lens=None, cond_latents=None,
-                  fix_condition_embeddings=False, attn_impl="flash", remat=False):
+                  fix_condition_embeddings=False, attn_impl="flash", remat=False,
+                  model_group=None, data_group=None):
     """Teacher-forced training forward and losses (``gpt.forward_train``, its
     loss branch): text_inputs (B, Wt) content codes and audio_codes (B, Wm)
     zero-padded, text_lengths (B,), wav_lengths (B,) in samples; cond_mels
     (B, 80, Tc) with cond_lens (B,) in samples, or cond_latents (B, 32, D).
     ``fix_condition_embeddings`` cuts the Perceiver off the gradient (its
-    parameters get zero gradients); ``remat`` as :func:`core_forward`.
-    Returns (loss_text, loss_mel, top10 accuracy, mel_logits)."""
+    parameters get zero gradients); ``remat`` and ``model_group`` as
+    :func:`core_forward`. Returns (loss_text, loss_mel, top10 accuracy,
+    mel_logits).
+
+    ``data_group``: this rank holds some rows of a global batch. Each loss
+    and the accuracy is then this rank's share of the global batch's mean,
+    sum(nll * keep) over its rows / sum(keep) over the global batch (the
+    denominators all-reduced here); the shares sum over the group to the
+    global means (JAX's ``_masked_ce`` over the sharded batch)."""
     cfg = model.cfg
     b, wt = text_inputs.shape
     wm = audio_codes.shape[1]
@@ -307,18 +355,23 @@ def forward_train(model: GPT, text_inputs, text_lengths, audio_codes, wav_length
     mel_keep = mpos <= code_lengths[:, None]
     key_valid = torch.cat([torch.ones(b, n_cond, dtype=torch.bool, device=dev),
                            text_keep, mel_keep], dim=1)
-    h = core_forward(model.core, emb, cfg, key_valid, attn_impl, remat)
+    h = core_forward(model.core, emb, cfg, key_valid, attn_impl, remat, model_group)
     enc = model.final_norm(h[:, n_cond:])
     text_logits = model.text_head(enc[:, : wt + 2])
     mel_logits = model.mel_head(enc[:, -(wm + 2):])
-    loss_text = _masked_ce(text_logits, text_tar, text_keep, cfg.label_smoothing)
-    loss_mel = _masked_ce(mel_logits, mel_tar, mel_keep, cfg.label_smoothing)
-    top10 = _topk_accuracy(mel_logits, mel_tar, mel_keep, k=10)
+    den_text = den_mel = None
+    if data_group is not None:
+        dens = torch.stack([text_keep.float().sum(), mel_keep.float().sum()])
+        den_text, den_mel = collectives.all_reduce(dens, data_group)
+    loss_text = _masked_ce(text_logits, text_tar, text_keep, cfg.label_smoothing, den_text)
+    loss_mel = _masked_ce(mel_logits, mel_tar, mel_keep, cfg.label_smoothing, den_mel)
+    top10 = _topk_accuracy(mel_logits, mel_tar, mel_keep, k=10, den=den_mel)
     return loss_text, loss_mel, top10, mel_logits
 
 
-def _masked_ce(logits, targets, keep, label_smoothing=0.0):
-    """Mean cross-entropy over kept targets, in f32."""
+def _masked_ce(logits, targets, keep, label_smoothing=0.0, den=None):
+    """Mean cross-entropy over kept targets, in f32; ``den`` (the global
+    batch's kept count) replaces this batch's own."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     tgt_logp = torch.gather(logp, -1, targets[..., None])[..., 0]
     if label_smoothing > 0.0:
@@ -326,16 +379,17 @@ def _masked_ce(logits, targets, keep, label_smoothing=0.0):
     else:
         nll = -tgt_logp
     keep = keep.float()
-    return (nll * keep).sum() / keep.sum().clamp_min(1.0)
+    return (nll * keep).sum() / (keep.sum() if den is None else den).clamp_min(1.0)
 
 
-def _topk_accuracy(logits, targets, keep, k=10):
+def _topk_accuracy(logits, targets, keep, k=10, den=None):
     """Micro top-k accuracy over kept targets: the target's rank counts the
     logits strictly above it, so ties are hits (``gpt._topk_accuracy``)."""
     tgt_logit = torch.gather(logits, -1, targets[..., None])
     rank = (logits > tgt_logit).sum(dim=-1)
     keep = keep.float()
-    return ((rank < k).float() * keep).sum() / keep.sum().clamp_min(1.0)
+    return ((rank < k).float() * keep).sum() / (keep.sum() if den is None
+                                                else den).clamp_min(1.0)
 
 
 def init_tree(gen, cfg: GPTConfig):

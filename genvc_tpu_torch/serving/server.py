@@ -28,10 +28,20 @@ host memory without blocking, behind a CUDA event; ``depth`` ticks are kept
 in flight, so the host enqueues tick N+1 while the card still runs tick N.
 A slot re-admitted while ticks are in flight has their stale rows skipped
 (per-slot epochs). On the CPU every result is ready at once.
+
+Sharding (``mesh=``, the JAX server's scale-out serving): the pool splits
+over the mesh's first axis into ``slots / n`` rows per shard, each shard
+with its own ``DecodeState``, carry and per-row parameters on its device;
+the weights are copied once per distinct device and shared by the shards
+on one device. A slot maps to (shard, local row). A tick launches shard by
+shard without waiting, so shards on different cards overlap; its results
+come back per shard. With one shard (no mesh) the code is the one-card
+server's.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from collections import deque
@@ -74,6 +84,49 @@ class _Stream:
     on_chunk: object = None        # optional per-stream chunk callback
     callback_error: str | None = None
     sampler: object = None         # the stream's decode config (None: the pipe's)
+
+
+@dataclasses.dataclass(eq=False)
+class _Shard:
+    """A contiguous range of the pool's slots, on one device."""
+
+    pipe: object                   # the pipeline whose weights sit on the device
+    start: int                     # first global slot
+    pool: engine.DecodeState
+    carry: torch.Tensor            # (rows, 1, D)
+    row_params: dict               # (rows,) tensors
+
+
+def _replica(pipe, device):
+    """``pipe`` with its modules copied to ``device``."""
+    rep = copy.copy(pipe)
+    rep.device = device
+    for name in ("gpt", "hifigan", "content_dvae", "contentvec"):
+        setattr(rep, name, copy.deepcopy(getattr(pipe, name)).to(device))
+    rep.mel_norms = torch.as_tensor(pipe.mel_norms).to(device)
+    rep.generator = torch.Generator(device=device).manual_seed(pipe.generator.initial_seed())
+    rep._cond_latent = None
+    return rep
+
+
+class _Tick:
+    """One pool tick's per-shard results, read as the whole pool's rows."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts  # [(shard, _Result)]
+
+    def fetch(self):
+        fetched = [r.fetch() for _, r in self.parts]
+        return [np.concatenate(xs) for xs in zip(*fetched)]
+
+    def lats(self, slot: int):
+        """(the slot's shard, that shard's latents, the slot's local row)."""
+        for shard, r in self.parts:
+            if shard.start <= slot < shard.start + len(shard.carry):
+                return shard, r.all_lats, slot - shard.start
+        raise IndexError(slot)
 
 
 class _Result:
@@ -143,12 +196,16 @@ class StreamServer:
 
         ``depth`` (default 2): ticks kept in flight; 1 is synchronous.
 
-        ``mesh`` (sharding the pool over several cards) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError("mesh= (the slot pool sharded over several "
-                                      "cards) is not ported yet (ROADMAP §A.6, the old A13)")
+        ``mesh`` (optional ``parallel.mesh.Mesh``, one process): shard the
+        slot pool over the mesh's FIRST axis, ``slots / n`` rows per device
+        (a device may repeat). ``slots`` must divide over it
+        (``ValueError``)."""
         self.pipe = pipe
         self.slots = int(slots)
+        devices = [pipe.device] if mesh is None else list(mesh.devices[:, 0])
+        if self.slots % len(devices):
+            raise ValueError(f"slots={self.slots} must divide over mesh axis "
+                             f"'{mesh.axis_names[0]}' ({len(devices)} devices)")
         ab = max(1, int(adm_batch))
         self._adm_buckets = tuple(b for b in (1, 2, 4, 8, 16, 32) if b <= ab)
         fw = pipe.first_chunk_tokens if first_window is None else int(first_window)
@@ -177,22 +234,34 @@ class StreamServer:
         self._adm_steps = 0  # decode steps of fast-first admission rows
 
         gcfg = pipe.gpt_cfg
-        pool = engine.init_state(gcfg, pipe._prefix_width, self.slots, pipe.device,
-                                 cache_dtype=pipe.cache_dtype, generator=pipe.generator,
-                                 gen_tokens=pipe._cache_gen_tokens(), per_row=True)
-        # never-occupied slots tick too: one valid key each keeps their softmax
-        # defined (all-masked keys give NaN latents), and they are finished
-        pool.key_valid[:, 0] = True
-        pool.finished.fill_(True)
-        self._pool = pool
-        self._carry = torch.zeros(self.slots, 1, gcfg.model_dim, device=pipe.device)
-        # per-slot decode parameters; idle slots hold the pipeline's
-        self._row_params = self._sampler_values([pipe.sampler] * self.slots)
+        rows = self.slots // len(devices)
+        pipes = {}  # one copy of the weights per distinct device
+        self._shards = []
+        for i, dev in enumerate(devices):
+            dev = torch.device(dev)
+            if dev not in pipes:
+                pipes[dev] = pipe if dev == torch.device(pipe.device) else _replica(pipe, dev)
+            sp = pipes[dev]
+            pool = engine.init_state(gcfg, sp._prefix_width, rows, sp.device,
+                                     cache_dtype=sp.cache_dtype, generator=sp.generator,
+                                     gen_tokens=sp._cache_gen_tokens(), per_row=True)
+            # never-occupied slots tick too: one valid key each keeps their
+            # softmax defined (all-masked keys give NaN latents), and they
+            # are finished
+            pool.key_valid[:, 0] = True
+            pool.finished.fill_(True)
+            self._shards.append(_Shard(
+                sp, i * rows, pool, torch.zeros(rows, 1, gcfg.model_dim, device=sp.device),
+                # per-slot decode parameters; idle slots hold the pipeline's
+                self._sampler_values([pipe.sampler] * rows, sp.device)))
 
-    def _sampler_values(self, samplers) -> dict:
-        """SamplerConfigs as the (B,) tensors of ``row_params``."""
-        return {k: torch.tensor([getattr(s, k) for s in samplers], dtype=dt,
-                                device=self.pipe.device)
+    def _shard(self, slot: int) -> _Shard:
+        return self._shards[slot // (self.slots // len(self._shards))]
+
+    @staticmethod
+    def _sampler_values(samplers, device) -> dict:
+        """SamplerConfigs as the (B,) tensors of ``row_params`` on ``device``."""
+        return {k: torch.tensor([getattr(s, k) for s in samplers], dtype=dt, device=device)
                 for k, dt in _PARAM_DTYPES.items()}
 
     # ------------------------------------------------------------- submit
@@ -238,8 +307,18 @@ class StreamServer:
     # ---------------------------------------------------------- admission
 
     def _start_segments(self, streams: list, slots: list):
+        """Prefill one segment per stream and insert the rows into ``slots``:
+        one batched prefill and one batched insertion per shard that the
+        slots fall in (:meth:`_start_on_shard`)."""
+        groups = {}
+        for s, slot in zip(streams, slots):
+            groups.setdefault(id(self._shard(slot)), []).append((s, slot))
+        for group in groups.values():
+            self._start_on_shard(self._shard(group[0][1]), *map(list, zip(*group)))
+
+    def _start_on_shard(self, shard: _Shard, streams: list, slots: list):
         """Prefill one segment per stream (one batched prefill) and insert
-        the rows into ``slots`` (one batched insertion).
+        the rows into ``slots`` of ``shard`` (one batched insertion).
 
         With fast-first (``first_window < STREAM_CHUNK``, segment 0 only) the
         rows first decode ``first_window`` tokens and their first windows are
@@ -249,7 +328,7 @@ class StreamServer:
         processed by ``step`` once it reaches the host (or before any later
         tick's data for the slot), where a segment that ended inside the first
         window is handled."""
-        pipe = self.pipe
+        pipe = shard.pipe
         fw = self.first_window
         segs, t_reals = [], []
         for s in streams:
@@ -257,9 +336,10 @@ class StreamServer:
             s.max_new = pipe._max_new(pipe._host_n_codes(t_real))
             segs.append(seg[0])
             t_reals.append(t_real)
-        values = self._sampler_values([s.sampler or pipe.sampler for s in streams])
+        values = self._sampler_values([s.sampler or pipe.sampler for s in streams],
+                                      pipe.device)
         rows, _, lat0, _, _ = pipe._start_segment(
-            np.stack(segs), t_reals, torch.cat([s.cond for s in streams]),
+            np.stack(segs), t_reals, torch.cat([s.cond for s in streams]).to(pipe.device),
             per_row=True, row_params=values)
         pending = None
         if streams[0].seg_idx == 0 and fw < STREAM_CHUNK:
@@ -277,10 +357,11 @@ class StreamServer:
             for s in streams:
                 s.n_total = 1
                 s.first_tick = True
-        engine.insert_rows(self._pool, rows, slots)
-        idx = torch.as_tensor(slots, dtype=torch.long, device=pipe.device)
-        self._carry[idx] = carry[:, None].to(self._carry.dtype)
-        for k, v in self._row_params.items():
+        local = [slot - shard.start for slot in slots]
+        engine.insert_rows(shard.pool, rows, local)
+        idx = torch.as_tensor(local, dtype=torch.long, device=pipe.device)
+        shard.carry[idx] = carry[:, None].to(shard.carry.dtype)
+        for k, v in shard.row_params.items():
             v[idx] = values[k]
         for i, (s, slot) in enumerate(zip(streams, slots)):
             self._slot_epoch[slot] += 1  # ticks in flight hold stale data for it
@@ -303,7 +384,7 @@ class StreamServer:
         s = self._slot_map[slot]
         if s.sid in self._cancelled:
             return  # the tick loop's cancel branch retires the stream
-        pipe = self.pipe
+        pipe = self._shard(slot).pipe
         fw = self.first_window
         toks_np, pre_np, wavs_np = rec.fetch()
         if bool(pre_np[i, 0]):
@@ -357,27 +438,28 @@ class StreamServer:
         vocode and EOS-tail vocode), on silence, and discard the results:
         the first wave of each size then does not pay the card's first-use
         costs while streams wait. The pool is not touched."""
-        pipe = self.pipe
         fw = self.first_window
         fastfirst = fw < STREAM_CHUNK
-        width = pipe._seg_len_16k
-        cond1 = pipe.get_gpt_cond_latents(np.zeros((1, pipe.sample_rate), np.float32))
-        want = [b for b in (buckets or self._adm_buckets) if b <= self.slots]
+        want = [b for b in (buckets or self._adm_buckets)
+                if b <= self.slots // len(self._shards)]
         if fastfirst and 1 not in want:
             want.append(1)  # segment advances prefill one row
-        for b in sorted(want):
-            values = self._sampler_values([pipe.sampler] * b)
-            rows, _, lat0, _, _ = pipe._start_segment(
-                np.zeros((b, width), np.float32), [width] * b, cond1.expand(b, -1, -1),
-                per_row=True, row_params=values)
-            if fastfirst:
-                _, lats, _ = engine.decode_chunk(pipe.gpt, rows, pipe.sampler, chunk=fw,
-                                                 row_params=values)
-                all_lats = torch.cat([lat0[:, None], lats], dim=1)
-                pipe.vocode(all_lats[:, :fw])
-                pipe._vocode_tail(all_lats, 0, 0, 1, fw)
-        if pipe.device.type == "cuda":
-            torch.cuda.synchronize(pipe.device)
+        for pipe in {id(sh.pipe): sh.pipe for sh in self._shards}.values():
+            width = pipe._seg_len_16k
+            cond1 = pipe.get_gpt_cond_latents(np.zeros((1, pipe.sample_rate), np.float32))
+            for b in sorted(want):
+                values = self._sampler_values([pipe.sampler] * b, pipe.device)
+                rows, _, lat0, _, _ = pipe._start_segment(
+                    np.zeros((b, width), np.float32), [width] * b, cond1.expand(b, -1, -1),
+                    per_row=True, row_params=values)
+                if fastfirst:
+                    _, lats, _ = engine.decode_chunk(pipe.gpt, rows, pipe.sampler, chunk=fw,
+                                                     row_params=values)
+                    all_lats = torch.cat([lat0[:, None], lats], dim=1)
+                    pipe.vocode(all_lats[:, :fw])
+                    pipe._vocode_tail(all_lats, 0, 0, 1, fw)
+            if pipe.device.type == "cuda":
+                torch.cuda.synchronize(pipe.device)
 
     def cancel(self, sid: int):
         """Cancel a stream. Queued: finalized (empty) at the next admission
@@ -393,14 +475,17 @@ class StreamServer:
         self._n_ticks += 1
         self._occupancy_sum += len(self._slot_map)
         k = STREAM_CHUNK
-        rp = self._row_params if any(self._slot_custom) else None
-        toks, all_lats, pre_fin, wavs = self.pipe.stream_chunk_batch(
-            self._pool, k, self._carry, win=k, row_params=rp)
-        # a copy: admissions write the carry in place, and this tick's
-        # latents stay in use until its result is processed
-        self._carry = all_lats[:, k : k + 1].clone()
-        self._inflight.append((_Result(toks, all_lats, pre_fin, wavs),
-                               list(self._slot_epoch)))
+        custom = any(self._slot_custom)
+        parts = []
+        for shard in self._shards:  # launched one after the other, no wait
+            toks, all_lats, pre_fin, wavs = shard.pipe.stream_chunk_batch(
+                shard.pool, k, shard.carry, win=k,
+                row_params=shard.row_params if custom else None)
+            # a copy: admissions write the carry in place, and this tick's
+            # latents stay in use until its result is processed
+            shard.carry = all_lats[:, k : k + 1].clone()
+            parts.append((shard, _Result(toks, all_lats, pre_fin, wavs)))
+        self._inflight.append((_Tick(parts), list(self._slot_epoch)))
 
     @torch.inference_mode()
     def step(self) -> bool:
@@ -422,9 +507,8 @@ class StreamServer:
         with record_function("genvc.fetch"):
             toks_np, pre_fin_np, wavs_np = tick.fetch()
 
-        pipe = self.pipe
         k = STREAM_CHUNK
-        stop = pipe.gpt_cfg.stop_audio_token
+        stop = self.pipe.gpt_cfg.stop_audio_token
         for slot in sorted(self._slot_map):
             if slot in self._pending_adm:
                 # the admission window goes out before any tick data of the
@@ -444,9 +528,10 @@ class StreamServer:
                 # inserted: the row belongs to the previous occupant
                 continue
             seg_done = False
+            shard, lats, row = tick.lats(slot)
             if s.first_tick and bool(pre_fin_np[slot, 0]):
                 # EOS at the prefill-sampled token: vocode just its latent
-                self._emit(s, _np(pipe._vocode_tail(tick.all_lats, slot, 0, 1, k)))
+                self._emit(s, _np(shard.pipe._vocode_tail(lats, row, 0, 1, k)))
                 seg_done = True
             else:
                 # every tick carries one latent and decodes k = win tokens:
@@ -457,8 +542,8 @@ class StreamServer:
                     self._emit(s, wavs_np[slot, 0])
                 if eos_j is not None:
                     if rem > 0:
-                        self._emit(s, _np(pipe._vocode_tail(tick.all_lats, slot,
-                                                            full * k, rem, k)))
+                        self._emit(s, _np(shard.pipe._vocode_tail(lats, row,
+                                                                  full * k, rem, k)))
                     seg_done = True
                 else:
                     s.n_total += k
@@ -559,5 +644,5 @@ class StreamServer:
             "queued": len(self._queue),
             "active": len(self._slot_map),
             "pending_results": len(self._results),
-            "decode_steps": self._pool.steps + self._adm_steps,
+            "decode_steps": sum(sh.pool.steps for sh in self._shards) + self._adm_steps,
         }

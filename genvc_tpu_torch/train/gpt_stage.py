@@ -31,6 +31,8 @@ from genvc_tpu_torch.config import GenVCConfig
 from genvc_tpu_torch.dsp import mel as mel_mod
 from genvc_tpu_torch.dsp.resample import resample
 from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model
+from genvc_tpu_torch.parallel import collectives
+from genvc_tpu_torch.parallel import mesh as mesh_lib
 from genvc_tpu_torch.train.optim import AdamW, FlatParams, global_norm
 
 
@@ -129,29 +131,42 @@ def prepare_features(frozen: FrozenModules, batch: dict, content_dtype=None) -> 
 @dataclasses.dataclass
 class GPTTrainState:
     """The trainable GPT (its parameters views of ``params.flat``), the
-    optimizer and the count of steps taken."""
+    optimizer and the count of steps taken; ``mesh`` when the step runs on a
+    ``(data, model)`` mesh."""
 
     model: gpt_model.GPT
     params: FlatParams
     opt: AdamW
     step: int = 0
+    mesh: mesh_lib.Mesh | None = None
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "params": ckpt_lib.export_tree(self.model),
-                "opt_state": self.opt.state_dict(), "names": self.params.names}
+        """The whole model's state in the single-card layout: under tensor
+        parallelism the shards are gathered over the model group (every
+        rank must call it), so a checkpoint resumes at any ``n_model``."""
+        tree, opt = ckpt_lib.export_tree(self.model), self.opt.state_dict()
+        if self.mesh is not None and self.mesh.n_model > 1:
+            tree = mesh_lib.gather_tree(tree, mesh_lib.gpt_param_specs(tree), self.mesh)
+            opt = dict(opt, mu=self.params.gather(opt["mu"], self.mesh),
+                       nu=self.params.gather(opt["nu"], self.mesh))
+        return {"step": self.step, "params": tree, "opt_state": opt,
+                "names": self.params.names}
 
 
 def loss_fn(model, tensors, feats, text_ce_weight, mel_ce_weight,
-            fix_condition_embeddings=True, attn_impl="flash", remat=False):
+            fix_condition_embeddings=True, attn_impl="flash", remat=False, mesh=None):
     """The weighted loss and the metrics, with ``tensors`` (name -> parameter)
-    substituted into ``model``."""
+    substituted into ``model``. On a ``mesh`` they are this rank's shares
+    of the global batch's (``gpt.forward_train``'s ``data_group``)."""
+    groups = {} if mesh is None else dict(model_group=mesh.model_group,
+                                          data_group=mesh.data_group)
     loss_text, loss_mel, top10, _ = functional_call(
         model, tensors,
         (feats["text_inputs"], feats["text_lengths"], feats["audio_codes"],
          feats["wav_lengths"]),
         dict(cond_mels=feats["cond_mels"], cond_lens=feats["cond_lens"],
              fix_condition_embeddings=fix_condition_embeddings, attn_impl=attn_impl,
-             remat=remat))
+             remat=remat, **groups))
     loss = text_ce_weight * loss_text + mel_ce_weight * loss_mel
     return loss, {"loss": loss, "loss_text_ce": loss_text, "loss_mel_ce": loss_mel,
                   "top10acc": top10}
@@ -160,7 +175,7 @@ def loss_fn(model, tensors, feats, text_ce_weight, mel_ce_weight,
 def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
                     fix_condition_embeddings: bool = True, compute_dtype=None,
                     remat=False, attn_impl: str = "flash", grad_norms: bool = False,
-                    content_dtype=None):
+                    content_dtype=None, mesh: mesh_lib.Mesh | None = None):
     """Returns (train_step, eval_step), each taking (state, batch, frozen).
     ``train_step`` updates ``state`` in place and returns it with the step's
     metrics (0-dim tensors on the device, nothing read to the host).
@@ -175,14 +190,24 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
     per-module gradient L2 norms (``grad_norm/<module>``,
     ``grad_norm/total``). The step's phases are profiler spans:
     ``genvc.features``, ``genvc.forward``, ``genvc.backward``,
-    ``genvc.optimizer``."""
+    ``genvc.optimizer``.
+
+    ``mesh``: each rank's batch is its rows of the global batch (the same
+    rows on every rank of a model group) and its GPT the rank's shards. The
+    losses are the global batch's (the shares of ``loss_fn`` summed), the
+    flat gradient is summed over the data group in one all-reduce (span
+    ``genvc.grad_all_reduce``), the metrics likewise in one, and the clip and
+    the gradient norms count the whole model (the optimizer's ``norm``)."""
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
 
     def _loss(state, feats):
         tensors = state.params.tensors(compute_dtype)
         if compute_dtype is not None:
             feats = dict(feats, cond_mels=feats["cond_mels"].to(compute_dtype))
         return loss_fn(state.model, tensors, feats, text_ce_weight, mel_ce_weight,
-                       fix_condition_embeddings, attn_impl, remat)
+                       fix_condition_embeddings, attn_impl, remat, mesh)
+
 
     def train_step(state: GPTTrainState, batch: dict, frozen: FrozenModules):
         with record_function("genvc.features"):
@@ -195,15 +220,13 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
             loss.backward()
         grad = flat.grad
         flat.grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:
+            with record_function("genvc.grad_all_reduce"):
+                collectives.all_reduce(grad, data_group)
+        metrics = collectives.all_reduce_values({k: v.detach() for k, v in metrics.items()},
+                                                data_group)
         if grad_norms:
-            sq = {}
-            for name, g in state.params.views(grad).items():
-                mod = name.split(".")[0]
-                sq[mod] = sq.get(mod, 0.0) + g.square().sum()
-            for mod, v in sq.items():
-                metrics[f"grad_norm/{mod}"] = v.sqrt()
-            metrics["grad_norm/total"] = global_norm(grad)
+            metrics.update(_grad_norms(state.params, grad, model_group))
         with record_function("genvc.optimizer"):
             state.opt.step(flat, grad)
         state.step += 1
@@ -212,6 +235,27 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
     @torch.no_grad()
     def eval_step(state: GPTTrainState, batch: dict, frozen: FrozenModules):
         _, metrics = _loss(state, prepare_features(frozen, batch, content_dtype))
-        return metrics
+        return collectives.all_reduce_values(metrics, data_group)
 
     return train_step, eval_step
+
+
+def _grad_norms(params: FlatParams, grad, model_group=None) -> dict:
+    """Per-module gradient L2 norms (``grad_norm/<module>``) and the total,
+    of the whole model: a sharded segment's squares summed over the model
+    group (one all-reduce for all modules), a replicated one's counted
+    once."""
+    sq_sh, sq_rep = {}, {}
+    for (name, g), sh in zip(params.views(grad).items(), params.sharded):
+        mod = name.split(".")[0]
+        acc = sq_sh if sh else sq_rep
+        acc[mod] = acc.get(mod, 0.0) + g.square().sum()
+        sq_rep.setdefault(mod, 0.0)
+    if sq_sh:
+        mods = list(sq_sh)
+        summed = collectives.all_reduce(torch.stack([sq_sh[m] for m in mods]), model_group)
+        for m, v in zip(mods, summed):
+            sq_rep[m] = sq_rep[m] + v
+    out = {f"grad_norm/{mod}": v.sqrt() for mod, v in sq_rep.items()}
+    out["grad_norm/total"] = global_norm(grad, params, model_group)
+    return out

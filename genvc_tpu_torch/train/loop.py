@@ -3,8 +3,9 @@
 
 Epoch loop -> per-step ``train_step`` -> metric averaging -> periodic
 keep-N checkpoints (``torch.save``) -> per-epoch eval -> console, jsonl and
-optional wandb logging. Metric names match the reference trainers. One card,
-one process.
+optional wandb logging. Metric names match the reference trainers. Under
+``torch.distributed`` every rank runs the loop; rank 0 alone logs and
+writes checkpoints.
 """
 
 from __future__ import annotations
@@ -17,6 +18,14 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from genvc_tpu_torch.parallel import collectives
+
+
+def is_main_process() -> bool:
+    """Rank 0, or the only process (JAX's ``process_index() == 0``)."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class MetricAverager:
@@ -37,12 +46,14 @@ class MetricAverager:
 
 class Logger:
     """Console, a ``train_log.jsonl`` under ``out_dir``, and wandb when asked
-    for (imported only then)."""
+    for (imported only then); on rank 0 only (the reference gates on
+    ``use_wandb and get_rank() == 0``)."""
 
     def __init__(self, use_wandb=False, project="", run_name="",
                  out_dir: str | None = None):
+        self.is_main = is_main_process()
         self.wandb = None
-        if use_wandb:
+        if use_wandb and self.is_main:
             try:
                 import wandb
 
@@ -51,7 +62,7 @@ class Logger:
             except Exception as e:  # logging must not stop training
                 self.print(f"wandb disabled: {e!r}")
         self.jsonl = None
-        if out_dir:
+        if out_dir and self.is_main:
             os.makedirs(out_dir, exist_ok=True)
             self.jsonl = open(os.path.join(out_dir, "train_log.jsonl"), "a")
 
@@ -66,7 +77,8 @@ class Logger:
             self.jsonl.flush()
 
     def print(self, msg: str):
-        print(msg, flush=True)
+        if self.is_main:
+            print(msg, flush=True)
 
     def log_histograms(self, tree: dict, step: int | None = None, prefix: str = "grad"):
         """Per-top-level-module value summaries of a tree (gradients or
@@ -116,11 +128,18 @@ def _leaves(node):
 class CheckpointManager:
     """Keep-N checkpoints ``<step>.pt`` in ``directory`` with resume (the
     reference's save_n_checkpoints / save_step / restore_path semantics).
-    ``save`` writes ``state.state_dict()``."""
+    ``save`` writes ``state.state_dict()``.
 
-    def __init__(self, directory: str, keep_n: int = 2):
+    Under ``torch.distributed`` (``device``: this rank's, for the barrier)
+    every rank calls ``save``: the state dict is built on every rank (a
+    tensor-parallel state gathers its shards there, in the whole model's
+    layout), rank 0 writes it, and the ranks meet at a barrier, so no rank
+    reads a checkpoint before it exists. Every rank reads ``restore``."""
+
+    def __init__(self, directory: str, keep_n: int = 2, device=None):
         self.directory = os.path.abspath(directory)
         self.keep_n = keep_n
+        self.device = device
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> list[int]:
@@ -128,12 +147,15 @@ class CheckpointManager:
                       if (m := re.fullmatch(r"(\d+)\.pt", f)))
 
     def save(self, step: int, state):
-        path = os.path.join(self.directory, f"{step}.pt")
-        tmp = path + ".tmp"
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, path)  # a reader never sees a half-written file
-        for old in self.steps()[:-self.keep_n]:
-            os.unlink(os.path.join(self.directory, f"{old}.pt"))
+        sd = state.state_dict()  # on every rank: it may gather
+        if is_main_process():
+            path = os.path.join(self.directory, f"{step}.pt")
+            tmp = path + ".tmp"
+            torch.save(sd, tmp)
+            os.replace(tmp, path)  # a reader never sees a half-written file
+            for old in self.steps()[:-self.keep_n]:
+                os.unlink(os.path.join(self.directory, f"{old}.pt"))
+        collectives.barrier(self.device or "cpu")
 
     def latest_step(self):
         steps = self.steps()

@@ -29,6 +29,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from genvc_tpu_torch.parallel import collectives
+from genvc_tpu_torch.parallel import mesh as mesh_lib
+
 _NO_DECAY_TOP = {"text_embedding", "mel_embedding", "text_pos", "mel_pos"}
 
 
@@ -81,7 +84,12 @@ class FlatParams:
     (which requires grad), the weight-decayed ones first so that optax's mask
     is one slice. The module's own parameters are re-pointed at detached
     views of ``flat``, so they always hold the current values; the training
-    forward takes :meth:`tensors` through ``torch.func.functional_call``."""
+    forward takes :meth:`tensors` through ``torch.func.functional_call``.
+
+    A tensor-parallel GPT (``n_model`` > 1) holds the rank's shards:
+    ``sharded[i]`` says whether segment ``i`` is split over the model group
+    (``parallel.mesh.split_dim``); the names and their order are those of
+    the whole model, so :meth:`gather` gives the single-card layout."""
 
     def __init__(self, module: nn.Module):
         named = list(module.named_parameters())
@@ -89,6 +97,9 @@ class FlatParams:
         self.names = [n for n, _ in named]
         self.shapes = [tuple(p.shape) for _, p in named]
         self.sizes = [p.numel() for _, p in named]
+        self.n_model = getattr(module, "n_model", 1)
+        self.sharded = [self.n_model > 1 and mesh_lib.split_dim(n, len(s)) is not None
+                        for n, s in zip(self.names, self.shapes)]
         self.n_decay = sum(s for (n, _), s in zip(named, self.sizes)
                            if decays(n.split(".")))
         self.flat = torch.cat([p.detach().reshape(-1).float() for _, p in named])
@@ -111,11 +122,69 @@ class FlatParams:
         src = self.flat if dtype in (None, torch.float32) else self.flat.to(dtype)
         return self.views(src)
 
+    def ranges(self, sharded: bool) -> list:
+        """(start, end) element ranges of the sharded (or the replicated)
+        segments, adjacent segments merged."""
+        out, pos = [], 0
+        for size, sh in zip(self.sizes, self.sharded):
+            if sh == sharded:
+                if out and out[-1][1] == pos:
+                    out[-1] = (out[-1][0], pos + size)
+                else:
+                    out.append((pos, pos + size))
+            pos += size
+        return out
 
-def global_norm(x):
+    def gather(self, vec, mesh) -> torch.Tensor:
+        """The whole model's flat vector (single-card layout, on the host)
+        from every rank's ``vec`` (the parameters or a moment): one
+        ``all_gather`` per sharded segment over the model group."""
+        parts = []
+        for name, shape, seg, sh in zip(self.names, self.shapes,
+                                        torch.split(vec.detach(), self.sizes), self.sharded):
+            if sh:
+                d = mesh_lib.split_dim(name, len(shape))
+                pieces = collectives.all_gather(seg.view(shape).contiguous(), mesh.model_group)
+                seg = mesh_lib.join_shards(pieces, d, mesh_lib.is_qkv(name)).reshape(-1)
+            parts.append(seg.float().cpu())
+        return torch.cat(parts)
+
+    def shard(self, full, rank: int) -> torch.Tensor:
+        """This rank's flat vector from the whole model's (:meth:`gather`
+        reversed; ``rank`` gives the model index)."""
+        parts, pos = [], 0
+        for name, shape, sh in zip(self.names, self.shapes, self.sharded):
+            d = mesh_lib.split_dim(name, len(shape))
+            whole = list(shape)
+            if sh:
+                whole[d] *= self.n_model
+            n = int(torch.Size(whole).numel())
+            seg = torch.as_tensor(full[pos:pos + n]).view(whole)
+            pos += n
+            if sh:
+                seg = mesh_lib.take_shard(seg, d, self.n_model, rank % self.n_model,
+                                          mesh_lib.is_qkv(name))
+            parts.append(seg.reshape(-1))
+        if pos != len(full):
+            raise ValueError(f"flat vector of {len(full)} elements, the model has {pos}")
+        return torch.cat(parts)
+
+
+def global_norm(x, params: FlatParams | None = None, model_group=None):
     """optax.global_norm of the tree whose leaves are the flat vector's
-    segments (one reduction)."""
-    return torch.linalg.vector_norm(x)
+    segments (one reduction). Under tensor parallelism (``params`` with
+    sharded segments and their ``model_group``) each sharded segment's
+    squares are summed over the group and each replicated one counted once:
+    the norm of the whole model, as JAX's clip of the sharded tree."""
+    if model_group is None or params is None or not any(params.sharded):
+        return torch.linalg.vector_norm(x)
+
+    def sq(ranges):
+        return torch.stack([x[a:b].square().sum() for a, b in ranges]).sum() if ranges \
+            else x.new_zeros(())
+
+    sharded = collectives.all_reduce(sq(params.ranges(True)), model_group)
+    return (sharded + sq(params.ranges(False))).sqrt()
 
 
 class AdamW:
@@ -124,13 +193,15 @@ class AdamW:
     the decayed elements are ``[:n_decay]`` (None: all of them)."""
 
     def __init__(self, lr_schedule, betas=(0.9, 0.96), eps=1e-8, weight_decay=1e-6,
-                 max_grad_norm: float | None = 1.0, n_decay: int | None = None):
+                 max_grad_norm: float | None = 1.0, n_decay: int | None = None,
+                 norm=global_norm):
         self.lr_schedule = lr_schedule if callable(lr_schedule) else (lambda _: lr_schedule)
         self.b1, self.b2 = betas
         self.eps = eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
         self.n_decay = n_decay
+        self.norm = norm  # the clip's norm of the flat gradient
         self.count = 0
         self.mu = self.nu = None
 
@@ -145,7 +216,7 @@ class AdamW:
         """One update of ``flat`` in place from ``grad`` (consumed)."""
         g = grad
         if self.max_grad_norm is not None:
-            g_norm = global_norm(g)
+            g_norm = self.norm(g)
             keep = g_norm < self.max_grad_norm
             # select(trigger, g, (g / g_norm) * max_norm), without a host read
             g = (g / torch.where(keep, 1.0, g_norm)) * torch.where(
@@ -172,11 +243,17 @@ class AdamW:
 
 
 def adamw_grouped(lr_schedule, betas=(0.9, 0.96), eps=1e-8, weight_decay=1e-6,
-                  max_grad_norm: float | None = 1.0, params: FlatParams | None = None):
+                  max_grad_norm: float | None = 1.0, params: FlatParams | None = None,
+                  model_group=None):
     """The GPT stage's optimizer; with ``params`` the decay skips biases,
-    norms and embeddings, without it every element decays."""
+    norms and embeddings, without it every element decays. ``model_group``:
+    the clip's norm is the whole model's over the tensor-parallel group."""
+    norm = global_norm
+    if model_group is not None:
+        def norm(g):
+            return global_norm(g, params, model_group)
     return AdamW(lr_schedule, betas, eps, weight_decay, max_grad_norm,
-                 None if params is None else params.n_decay)
+                 None if params is None else params.n_decay, norm)
 
 
 # The JAX package's single-traversal variant of the same recipe. On the flat

@@ -1,7 +1,14 @@
 """Stage runners (``genvc_tpu/train/runner.py``): each ``run_*_training``
-mirrors one reference entry script end to end on one card — frozen modules
-from the stage checkpoints, the trainable modules, the data, the
-optimizers and the loop with keep-N checkpoints and resume.
+mirrors one reference entry script end to end — frozen modules from the
+stage checkpoints, the trainable modules, the data, the optimizers and the
+loop with keep-N checkpoints and resume.
+
+In a process group (``parallel.mesh.initialize_distributed``, e.g. under
+``torchrun``) every runner trains data-parallel over the ranks: the global
+batch stays ``batch_size`` and each data rank reads ``batch_size / n_data``
+rows from its own stride of the data. The GPT runner's ``n_model`` shards
+the GPT Megatron-style over groups of ``n_model`` consecutive ranks, which
+read identical batches.
 
 * :func:`run_vae_training`: the acoustic and content dVAEs (stages 1-2);
 * :func:`run_gpt_training`: the GPT (stage 3);
@@ -22,6 +29,7 @@ from genvc_tpu_torch.config import GenVCConfig, VAEConfig
 from genvc_tpu_torch.data.dataset import VCDatasetConfig, VCWaveDataset, WaveformDVAEDataset
 from genvc_tpu_torch.data.loader import BatchLoader
 from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan
+from genvc_tpu_torch.parallel import mesh as mesh_lib
 from genvc_tpu_torch.train import gpt_stage, loop, optim, vae_stage, vocoder_stage
 
 
@@ -46,15 +54,47 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def _device_banner(dev) -> str:
-    return f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
-                               if dev.type == "cuda" else "")
+def _device_banner(dev, mesh=None) -> str:
+    out = f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
+                              if dev.type == "cuda" else "")
+    if mesh is not None:
+        out += (f"; mesh data={mesh.n_data} x model={mesh.n_model} over "
+                f"{mesh.n_data * mesh.n_model} ranks, backend {mesh.backend}")
+    return out
 
 
-def _loaders(cfg, train_ds, eval_ds):
-    return (BatchLoader(train_ds, cfg.batch_size, num_workers=cfg.num_loader_workers),
-            BatchLoader(eval_ds, cfg.eval_batch_size, shuffle=False,
-                        num_workers=cfg.num_loader_workers))
+def _data_mesh(batch_size: int, n_model: int, dev) -> mesh_lib.Mesh | None:
+    """The ``(data, model)`` mesh of the process group (None for one
+    process): ``n_model`` consecutive ranks per model group, the rest data
+    parallel. JAX's ``_data_mesh`` shrinks the data axis until it divides
+    the batch; the ranks here are fixed by the launcher, so a batch the
+    data axis does not divide raises."""
+    world = mesh_lib.world_size()
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"n_model={n_model} does not divide the world of {world} "
+                         "ranks: launch n_model x n_data ranks (torchrun "
+                         "--nproc_per_node N)")
+    n_data = world // n_model
+    if batch_size % n_data:
+        raise ValueError(f"batch of {batch_size} rows does not divide over {n_data} "
+                         f"data ranks (world size {world}, n_model {n_model})")
+    if world == 1:
+        return None
+    return mesh_lib.make_mesh(n_data=n_data, n_model=n_model, device=dev)
+
+
+def _loaders(cfg, train_ds, eval_ds, mesh=None):
+    """Each data rank reads a disjoint stride of the sample order, its
+    ``1 / n_data`` share of each global batch (``_loader_shards``); the
+    ranks of one model group read the same stride, so the same batches."""
+    n, i = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index)
+    for what, b in (("batch_size", cfg.batch_size), ("eval_batch_size", cfg.eval_batch_size)):
+        if b % n:
+            raise ValueError(f"{what} {b} does not divide over {n} data ranks")
+    return (BatchLoader(train_ds, cfg.batch_size // n, num_workers=cfg.num_loader_workers,
+                        num_shards=n, shard_index=i),
+            BatchLoader(eval_ds, cfg.eval_batch_size // n, shuffle=False,
+                        num_workers=cfg.num_loader_workers, num_shards=n, shard_index=i))
 
 
 def _check_names(restored_names, params: optim.FlatParams):
@@ -64,14 +104,16 @@ def _check_names(restored_names, params: optim.FlatParams):
 
 def run_vae_training(cfg: VAEConfig, max_steps: int | None = None,
                      max_eval_batches: int | None = None, device="cuda"):
-    """Train a dVAE (stage 1: mel features; stage 2: ContentVec features) on
-    one device; returns the final :class:`vae_stage.VAETrainState`. At each
-    epoch's end the first eval batch's input and reconstruction are plotted
-    under ``<output_path>/eval_plots`` (and logged to wandb when on)."""
+    """Train a dVAE (stage 1: mel features; stage 2: ContentVec features),
+    data-parallel over the process group if there is one; returns the final
+    :class:`vae_stage.VAETrainState`. At each epoch's end the first eval
+    batch's input and reconstruction are plotted under
+    ``<output_path>/eval_plots`` (and logged to wandb when on), on rank 0."""
     dev = resolve_device(device)
+    mesh = _data_mesh(cfg.batch_size, 1, dev)
     logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
                          cfg.output_path)
-    logger.print(_device_banner(dev))
+    logger.print(_device_banner(dev, mesh))
     if cfg.feat_type == "Mel-spectrogram":
         feat_params = torch.as_tensor(ckpt_lib.load_mel_norms(cfg.mel_norm_file), device=dev)
     else:
@@ -84,7 +126,7 @@ def run_vae_training(cfg: VAEConfig, max_steps: int | None = None,
 
     dcfg = ckpt_lib.dvae_config(cfg)
     ckpt = loop.CheckpointManager(os.path.join(cfg.output_path, "ckpt"),
-                                  cfg.save_n_checkpoints)
+                                  cfg.save_n_checkpoints, dev)
     restored, step0 = ckpt.restore()
     if restored is not None:
         tree = restored["params"]
@@ -103,17 +145,20 @@ def run_vae_training(cfg: VAEConfig, max_steps: int | None = None,
         opt.load_state_dict(restored["opt_state"])
         logger.print(f"resumed from step {step0}")
     state = vae_stage.VAETrainState(model, params, opt, int(step0 or 0))
-    train_step, eval_step = vae_stage.make_train_step(feat_fn)
+    train_step, eval_step = vae_stage.make_train_step(
+        feat_fn, None if mesh is None else mesh.data_group)
 
     rate = cfg.audio.dvae_sample_rate
     train_loader, eval_loader = _loaders(
         cfg, WaveformDVAEDataset(cfg.train_metafile, False, rate, cfg.max_wav_len),
-        WaveformDVAEDataset(cfg.test_metafile, True, rate, cfg.max_wav_len))
+        WaveformDVAEDataset(cfg.test_metafile, True, rate, cfg.max_wav_len), mesh)
 
     def on_epoch_end(state, epoch, step):
         # input-vs-reconstruction images (reference VAE_trainer eval_step and
         # its wandb table, VAE_trainer.py:134-141); a failure is logged, the
         # training goes on
+        if not logger.is_main:
+            return
         try:
             from genvc_tpu_torch.utils import plot_feat
 
@@ -149,7 +194,7 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
                      max_eval_batches: int | None = None, n_model: int = 1,
                      bf16: bool = False, remat=False, content_bf16: bool = False,
                      attn_impl: str = "flash", device="cuda"):
-    """Train the GPT (stage 3) on one device; returns the final
+    """Train the GPT (stage 3); returns the final
     :class:`gpt_stage.GPTTrainState`.
 
     bf16=True runs the trainable GPT in bfloat16 on f32 masters (the frozen
@@ -159,15 +204,23 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
     "dots") checkpoints the GPT's blocks. At each epoch's end the listening
     samples of the first eval batch are written to
     ``<output_path>/eval_samples/e<epoch>_self.wav`` and
-    ``e<epoch>_cross<row>.wav`` (and logged to wandb when on). Tensor
-    parallelism (``n_model > 1``) is not ported and raises."""
-    if n_model > 1:
-        raise NotImplementedError("tensor parallelism (n_model > 1) is not ported "
-                                  "yet (ROADMAP §A.6, the old A13)")
+    ``e<epoch>_cross<row>.wav`` (and logged to wandb when on), on rank 0.
+
+    In a process group the ranks form a ``(world / n_model, n_model)`` mesh:
+    ``n_model`` > 1 shards the GPT Megatron-style over each model group
+    (``parallel.mesh.shard_tree``), the rest is data parallel. Checkpoints
+    hold the whole model, so a run resumes at any ``n_model``. ``n_model``
+    must divide the GPT's heads and the world size, and the data axis the
+    batch (``ValueError``)."""
+    gcfg = ckpt_lib.gpt_config(cfg)
+    if n_model < 1 or gcfg.heads % n_model:
+        raise ValueError(f"{gcfg.heads} heads do not divide over n_model={n_model}")
     dev = resolve_device(device)
+    mesh = _data_mesh(cfg.batch_size, n_model, dev)
     logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
                          cfg.output_path)
-    logger.print(_device_banner(dev))
+    logger.print(_device_banner(dev, mesh))
+    tp = mesh is not None and mesh.n_model > 1
 
     ma = cfg.model_args
     frozen = gpt_stage.make_frozen(cfg, {
@@ -176,23 +229,24 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
         "content_dvae": ckpt_lib.load_dvae(cfg.content_dvae_checkpoint),
     }, ckpt_lib.load_mel_norms(ma.mel_norm_file), dev)
 
-    gcfg = ckpt_lib.gpt_config(cfg)
     if ma.gpt_checkpoint:
         tree = ckpt_lib.load_gpt(ma.gpt_checkpoint, gcfg.layers)
     else:
         gen = torch.Generator(device=dev).manual_seed(cfg.training_seed)
         tree = gpt_model.init_tree(gen, gcfg)
     ckpt = loop.CheckpointManager(os.path.join(cfg.output_path, "ckpt"),
-                                  cfg.save_n_checkpoints)
+                                  cfg.save_n_checkpoints, dev)
     restored, step0 = ckpt.restore()
     if restored is not None:
         tree = restored["params"]
+    if tp:
+        tree = mesh_lib.shard_tree(tree, mesh_lib.gpt_param_specs(tree), mesh)
     with torch.device("meta"):
-        model = gpt_model.GPT(gcfg)
+        model = gpt_model.GPT(gcfg, n_model)
     ckpt_lib.assign(model, tree, dev)
     params = optim.FlatParams(model)
 
-    train_loader, eval_loader = _loaders(cfg, *datasets(cfg))
+    train_loader, eval_loader = _loaders(cfg, *datasets(cfg), mesh)
     # MultiStepLR on epoch milestones -> step milestones (reference
     # lr_scheduler_params: milestones [10, 25, 35, 50], gamma 0.5)
     steps_per_epoch = max(len(train_loader), 1)
@@ -205,12 +259,17 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
                                   "weight_decay": 1e-6}
     tx = optim.adamw_grouped(sched, betas=tuple(op["betas"]), eps=op["eps"],
                              weight_decay=op["weight_decay"],
-                             max_grad_norm=cfg.max_grad_norm, params=params).init(params.flat)
+                             max_grad_norm=cfg.max_grad_norm, params=params,
+                             model_group=mesh.model_group if tp else None).init(params.flat)
     if restored is not None:
         _check_names(restored["names"], params)
-        tx.load_state_dict(restored["opt_state"])
+        opt_state = restored["opt_state"]
+        if tp:  # checkpoints hold the whole model's moments
+            opt_state = dict(opt_state, **{k: params.shard(opt_state[k], mesh.rank)
+                                           for k in ("mu", "nu")})
+        tx.load_state_dict(opt_state)
         logger.print(f"resumed from step {step0}")
-    state = gpt_stage.GPTTrainState(model, params, tx, int(step0 or 0))
+    state = gpt_stage.GPTTrainState(model, params, tx, int(step0 or 0), mesh)
 
     train_step, eval_step = gpt_stage.make_train_step(
         text_ce_weight=ma.gpt_loss_text_ce_weight,
@@ -220,19 +279,30 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
         # per-module gradient norms ride the wandb gate, like the reference's
         # wandb.watch(model) (gpt_trainer.py:48)
         grad_norms=cfg.use_wandb,
-        content_dtype=torch.bfloat16 if content_bf16 else None)
+        content_dtype=torch.bfloat16 if content_bf16 else None, mesh=mesh)
 
     def on_epoch_end(state, epoch, step):
         # listening samples: a self-reconstruction and a cross-speaker
         # conversion (reference generate_eval_sample, gpt_trainer.py:146-170);
-        # a failure is logged, the training goes on
+        # a failure is logged, the training goes on. A sharded GPT is
+        # gathered first, on every rank (a collective), then rank 0 samples.
+        model = state.model
+        if tp:
+            tree = ckpt_lib.export_tree(model)
+            tree = mesh_lib.gather_tree(tree, mesh_lib.gpt_param_specs(tree), mesh)
+        if not logger.is_main:
+            return
         try:
+            if tp:
+                with torch.device("meta"):
+                    model = gpt_model.GPT(gcfg)
+                ckpt_lib.assign(model, tree, dev)
             from genvc_tpu_torch.dsp.audio_io import write_wav
             from genvc_tpu_torch.train.eval_samples import generate_eval_samples
 
             feats = gpt_stage.prepare_features(frozen, to_device(next(iter(eval_loader)), dev))
             self_wav, cross_wav, tgt = generate_eval_samples(
-                state.model, frozen.acoustic_dvae, feats, frozen.mel_norms,
+                model, frozen.acoustic_dvae, feats, frozen.mel_norms,
                 torch.Generator(device=dev).manual_seed(epoch))
             sample_dir = os.path.join(cfg.output_path, "eval_samples")
             os.makedirs(sample_dir, exist_ok=True)
@@ -262,19 +332,21 @@ def run_vocoder_training(cfg: GenVCConfig, max_steps: int | None = None,
                          max_eval_batches: int | None = None, bf16_discs: bool = False,
                          device="cuda"):
     """Train the HiFi-GAN generator and its four discriminator families
-    (stage 4) against the frozen GPT's latents on one device; returns the
+    (stage 4) against the frozen GPT's latents; returns the
     final :class:`vocoder_stage.VocoderTrainState`. The generator starts from
     ``model_args.hifigan_checkpoint`` when given (kept in weight-norm form),
     else from a seeded init; ``bf16_discs`` runs the discriminator conv
-    stacks in bf16 (the front ends and the losses stay f32)."""
+    stacks in bf16 (the front ends and the losses stay f32). In a process
+    group the step is data-parallel over the ranks."""
     ma = cfg.model_args
     if not ma.gpt_checkpoint:
         raise ValueError("the vocoder stage needs a frozen GPT checkpoint "
                          "(model_args.gpt_checkpoint)")
     dev = resolve_device(device)
+    mesh = _data_mesh(cfg.batch_size, 1, dev)
     logger = loop.Logger(cfg.use_wandb, cfg.wandb_project, cfg.wandb_run_name,
                          cfg.output_path)
-    logger.print(_device_banner(dev))
+    logger.print(_device_banner(dev, mesh))
     frozen = gpt_stage.make_frozen(cfg, {
         "contentvec": ckpt_lib.load_contentvec(cfg.contentvec_model_path),
         "acoustic_dvae": ckpt_lib.load_dvae(cfg.acoustic_dvae_checkpoint),
@@ -288,7 +360,7 @@ def run_vocoder_training(cfg: GenVCConfig, max_steps: int | None = None,
 
     vcfg = cfg.vocoder_config
     ckpt = loop.CheckpointManager(os.path.join(cfg.output_path, "ckpt"),
-                                  cfg.save_n_checkpoints)
+                                  cfg.save_n_checkpoints, dev)
     restored, step0 = ckpt.restore()
     gen = torch.Generator(device=dev).manual_seed(cfg.training_seed)
     with torch.device("meta"):
@@ -306,7 +378,7 @@ def run_vocoder_training(cfg: GenVCConfig, max_steps: int | None = None,
         ckpt_lib.assign(discs, restored["disc_params"], dev)
     gen_params, disc_params = optim.FlatParams(generator), optim.FlatParams(discs)
 
-    train_loader, eval_loader = _loaders(cfg, *datasets(cfg))
+    train_loader, eval_loader = _loaders(cfg, *datasets(cfg), mesh)
     op = cfg.optimizer_params or {"betas": [0.8, 0.99]}
     # ExponentialLR per epoch (reference get_scheduler,
     # hifigan_trainer.py:574-591, gamma = lr_decay)
@@ -325,7 +397,8 @@ def run_vocoder_training(cfg: GenVCConfig, max_steps: int | None = None,
                                             gen_opt, disc_opt, int(step0 or 0))
     train_step, eval_step = vocoder_stage.make_train_step(
         vcfg, scale_factor=int(ma.gpt_code_stride_len // vcfg.hop_length),
-        disc_dtype=torch.bfloat16 if bf16_discs else None)
+        disc_dtype=torch.bfloat16 if bf16_discs else None,
+        data_group=None if mesh is None else mesh.data_group)
     try:
         return loop.fit(state, lambda s, b: train_step(s, b, frozen, gpt), train_loader,
                         epochs=cfg.epochs, logger=logger,

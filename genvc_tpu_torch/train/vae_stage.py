@@ -20,6 +20,7 @@ from genvc_tpu_torch import checkpoint as ckpt_lib
 from genvc_tpu_torch.config import VAEConfig
 from genvc_tpu_torch.dsp import mel as mel_mod
 from genvc_tpu_torch.models import dvae
+from genvc_tpu_torch.parallel import collectives
 from genvc_tpu_torch.train.optim import AdamW, FlatParams
 
 
@@ -69,33 +70,43 @@ def make_feature_fn(config: VAEConfig):
     return feat_fn
 
 
-def make_train_step(feat_fn):
+def make_train_step(feat_fn, data_group=None):
     """Returns (train_step, eval_step), each taking (state, batch,
     feat_params). ``train_step`` updates ``state`` in place and returns it
-    with the step's metrics (0-dim tensors on the device)."""
+    with the step's metrics (0-dim tensors on the device).
+
+    ``data_group``: data parallelism, each rank with its rows of the batch.
+    The codebook statistics are all-reduced in the forward (``dvae``), the
+    flat gradient and the metrics are averaged over the group (one
+    all-reduce each): the losses are means over equal shares of rows."""
+
 
     def train_step(state: VAETrainState, batch: dict, feat_params=None):
         with torch.no_grad():
             feat = feat_fn(feat_params, batch["wav"])
         recon, commit, _, new_cb, _ = functional_call(
-            state.model, state.params.tensors(), (feat,))
+            state.model, state.params.tensors(), (feat,), {"data_group": data_group})
         loss = recon + commit
         flat = state.params.flat
         flat.grad = None
         loss.backward()
         grad = flat.grad
         flat.grad = None
+        collectives.all_reduce(grad, data_group, "mean")
         state.opt.step(flat, grad)
         for k, v in new_cb.items():
             setattr(state.model.codebook, k, v)
         state.step += 1
-        return state, {"loss": loss.detach(), "recon_loss": recon.detach(),
-                       "commitment_loss": commit.detach()}
+        return state, collectives.all_reduce_values(
+            {"loss": loss.detach(), "recon_loss": recon.detach(),
+             "commitment_loss": commit.detach()}, data_group, "mean")
 
     @torch.no_grad()
     def eval_step(state: VAETrainState, batch: dict, feat_params=None):
         recon, commit, _, _, _ = state.model.forward_train(feat_fn(feat_params, batch["wav"]))
-        return {"loss": recon + commit, "recon_loss": recon, "commitment_loss": commit}
+        return collectives.all_reduce_values(
+            {"loss": recon + commit, "recon_loss": recon, "commitment_loss": commit},
+            data_group, "mean")
 
     return train_step, eval_step
 

@@ -30,6 +30,7 @@ from genvc_tpu_torch import checkpoint as ckpt_lib
 from genvc_tpu_torch.config import VocoderConfig
 from genvc_tpu_torch.models import gpt as gpt_model, hifigan
 from genvc_tpu_torch.ops.conv import linear_interp_x4, reset_convs
+from genvc_tpu_torch.parallel import collectives
 from genvc_tpu_torch.train import losses
 from genvc_tpu_torch.train.gpt_stage import FrozenModules, prepare_features
 from genvc_tpu_torch.train.optim import AdamW, FlatParams
@@ -86,14 +87,21 @@ def prepare_vocoder_batch(frozen: FrozenModules, gpt: gpt_model.GPT, batch: dict
 
 
 def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=None,
-                    families=None):
+                    families=None, data_group=None):
     """Returns (train_step, eval_step), each taking (state, batch, frozen,
     gpt). ``train_step`` updates ``state`` in place and returns it with the
     metrics ``loss_disc``, ``loss_gen`` and ``mel_loss`` (0-dim tensors on the
     device). ``disc_dtype`` (bf16) runs the discriminator conv stacks in that
     dtype; ``families`` restricts the discriminator set (default: all four,
     the reference recipe). Profiler spans: ``genvc.vocoder_batch``,
-    ``genvc.disc_step``, ``genvc.gen_step``."""
+    ``genvc.disc_step``, ``genvc.gen_step``.
+
+    ``data_group``: data parallelism, each rank with its rows of the batch.
+    Both optimizers' flat gradients and the metrics are averaged over the
+    group (the losses are means over equal shares of rows). The
+    spectral-norm buffers need no collective: the power iteration reads
+    only the weights, which stay equal on every rank."""
+
     families = hifigan.ALL_FAMILIES if families is None else tuple(families)
     if not families or not set(families) <= set(hifigan.ALL_FAMILIES):
         raise ValueError(f"families must name some of {hifigan.ALL_FAMILIES}: {families}")
@@ -120,7 +128,7 @@ def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=No
                                    dict(compute_dtype=disc_dtype, sn_update=True,
                                         families=families))
             d_loss = disc_loss(outs)
-            _step(state.disc_params, state.disc_opt, d_loss)
+            _step(state.disc_params, state.disc_opt, d_loss, data_group)
         with record_function("genvc.gen_step"):
             # 2) the generator, against the updated discriminators (their
             # parameters are detached views: the gradient reaches y_hat only)
@@ -130,10 +138,11 @@ def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=No
                          for _, lg, fr, fg in outs.values())
             ml = losses.mel_loss(wav_gt[:, 0, :], y_hat[:, 0, :], voc_cfg)
             g_loss = g_loss + ml
-            _step(state.gen_params, state.gen_opt, g_loss)
+            _step(state.gen_params, state.gen_opt, g_loss, data_group)
         state.step += 1
-        return state, {"loss_disc": d_loss.detach(), "loss_gen": g_loss.detach(),
-                       "mel_loss": ml.detach()}
+        return state, collectives.all_reduce_values(
+            {"loss_disc": d_loss.detach(), "loss_gen": g_loss.detach(),
+             "mel_loss": ml.detach()}, data_group, "mean")
 
     @torch.no_grad()
     def eval_step(state: VocoderTrainState, batch: dict, frozen: FrozenModules,
@@ -142,16 +151,19 @@ def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=No
         y_hat = render(state.generator, latents)
         # eval forwards keep the stored power-iteration buffers (torch eval)
         outs = state.discriminators(wav_gt, y_hat, disc_dtype, False, families)
-        return {"loss_disc": disc_loss(outs),
-                "mel_loss": losses.mel_loss(wav_gt[:, 0, :], y_hat[:, 0, :], voc_cfg)}
+        return collectives.all_reduce_values(
+            {"loss_disc": disc_loss(outs),
+             "mel_loss": losses.mel_loss(wav_gt[:, 0, :], y_hat[:, 0, :], voc_cfg)},
+            data_group, "mean")
 
     return train_step, eval_step
 
 
-def _step(params: FlatParams, opt: AdamW, loss):
+def _step(params: FlatParams, opt: AdamW, loss, data_group=None):
     flat = params.flat
     flat.grad = None
     loss.backward()
     grad = flat.grad
     flat.grad = None
+    collectives.all_reduce(grad, data_group, "mean")
     opt.step(flat, grad)

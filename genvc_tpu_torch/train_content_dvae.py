@@ -47,10 +47,14 @@ def main(argv=None) -> int:
     ap.add_argument("--max_eval_batches", type=int, default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="2-step end-to-end smoke on synthetic data")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="default cuda:<LOCAL_RANK> (cuda:0 in one process)")
     args = ap.parse_args(argv)
 
+    from genvc_tpu_torch.parallel import mesh as mesh_lib
     from genvc_tpu_torch.train.runner import run_vae_training
+
+    device = mesh_lib.launch(args.device)
 
     cfg = recipe_config(args.train_metafile, args.test_metafile, args.contentvec_model_path,
                         output_path=args.output_path, batch_size=args.batch_size,
@@ -63,8 +67,11 @@ def main(argv=None) -> int:
         cfg.output_path = "exp/smoke_content_dvae_torch"
         smoke_vae_overrides(cfg, "exp/smoke_assets_cdvae_torch")
         max_steps, max_eval_batches = 2, 1
-    state = run_vae_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
-                             device=args.device)
+    try:
+        state = run_vae_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
+                                 device=device)
+    finally:
+        mesh_lib.shutdown()
     print(f"trained to step {state.step}")
     return 0
 

@@ -6,9 +6,13 @@ Usage:
         [--content_bf16] [--device cuda] [--train_metafile ...] [--max_steps N]
     python -m genvc_tpu_torch.train_genVC --smoke --device cpu   # 2 steps on
                                                                  # synthetic data
+    torchrun --nproc_per_node N -m genvc_tpu_torch.train_genVC [--n_model M]
 
-``--n_model`` above 1 (tensor parallelism, queued in ROADMAP §A.6) exits
-with code 2. The other training stages have their own CLIs:
+Under ``torchrun`` each rank trains on ``cuda:<LOCAL_RANK>`` (NCCL with a
+card per rank, gloo when ranks share one): data-parallel over N / M groups,
+the GPT sharded Megatron-style over each group of M ranks (``--n_model``).
+``--n_model`` > 1 in a world it does not divide (one process included)
+exits with code 2. The other training stages have their own CLIs:
 ``train_audio_dvae`` and ``train_content_dvae`` (stages 1-2) and
 ``train_vocoder`` (stage 4).
 """
@@ -16,12 +20,8 @@ with code 2. The other training stages have their own CLIs:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-
-_NOT_PORTED = [
-    (lambda a: a.n_model > 1, "--n_model > 1 (tensor parallelism) is not ported yet "
-                              "(ROADMAP §A.6, the old A13)"),
-]
 
 
 def recipe_config(train_metafile, test_metafile, mel_norm_file,
@@ -89,7 +89,7 @@ def main(argv=None) -> int:
     ap.add_argument("--use_wandb", action="store_true")
     ap.add_argument("--num_workers", type=int, default=24)
     ap.add_argument("--n_model", type=int, default=1,
-                    help="tensor-parallel size (only 1 is ported)")
+                    help="tensor-parallel size: ranks per model group (under torchrun)")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--max_eval_batches", type=int, default=None)
     ap.add_argument("--smoke", action="store_true",
@@ -103,14 +103,20 @@ def main(argv=None) -> int:
     ap.add_argument("--content_bf16", action="store_true",
                     help="bf16 frozen ContentVec (its features go to the content "
                          "dVAE in f32; the acoustic labels stay f32)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="default cuda:<LOCAL_RANK> (cuda:0 in one process)")
     args = ap.parse_args(argv)
-    for not_ported, message in _NOT_PORTED:
-        if not_ported(args):
-            print(message, file=sys.stderr)
-            return 2
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.n_model < 1 or world % args.n_model:
+        print(f"--n_model {args.n_model} needs a world of a multiple of {args.n_model} "
+              f"ranks, this one has {world}: launch with torchrun --nproc_per_node N "
+              f"-m genvc_tpu_torch.train_genVC --n_model {args.n_model}", file=sys.stderr)
+        return 2
 
+    from genvc_tpu_torch.parallel import mesh as mesh_lib
     from genvc_tpu_torch.train.runner import run_gpt_training
+
+    device = mesh_lib.launch(args.device)
 
     cfg = recipe_config(
         train_metafile=args.train_metafile, test_metafile=args.test_metafile,
@@ -128,10 +134,14 @@ def main(argv=None) -> int:
         cfg.output_path = "exp/smoke_gpt_torch"
         smoke_overrides(cfg, "exp/smoke_assets_torch")
         max_steps, max_eval_batches = 2, 1
-    state = run_gpt_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
-                             bf16=args.bf16,
-                             remat={"0": False, "1": True, "dots": "dots"}[args.remat],
-                             content_bf16=args.content_bf16, device=args.device)
+    try:
+        state = run_gpt_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
+                                 bf16=args.bf16,
+                                 remat={"0": False, "1": True, "dots": "dots"}[args.remat],
+                                 content_bf16=args.content_bf16, n_model=args.n_model,
+                                 device=device)
+    finally:
+        mesh_lib.shutdown()
     print(f"trained to step {state.step}")
     return 0
 

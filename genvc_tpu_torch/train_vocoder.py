@@ -85,10 +85,14 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16_discs", action="store_true",
                     help="run the discriminator conv stacks in bfloat16 (the "
                          "spectral front ends and all losses stay f32)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="default cuda:<LOCAL_RANK> (cuda:0 in one process)")
     args = ap.parse_args(argv)
 
+    from genvc_tpu_torch.parallel import mesh as mesh_lib
     from genvc_tpu_torch.train.runner import run_vocoder_training
+
+    device = mesh_lib.launch(args.device)
 
     cfg = recipe_config(
         args.train_metafile, args.test_metafile, args.mel_norm_file,
@@ -103,8 +107,11 @@ def main(argv=None) -> int:
         cfg.output_path = "exp/smoke_vocoder_torch"
         smoke_overrides(cfg, "exp/smoke_assets_voc_torch", need_gpt_ckpt=True)
         max_steps, max_eval_batches = 2, 1
-    state = run_vocoder_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
-                                 bf16_discs=args.bf16_discs, device=args.device)
+    try:
+        state = run_vocoder_training(cfg, max_steps=max_steps, max_eval_batches=max_eval_batches,
+                                     bf16_discs=args.bf16_discs, device=device)
+    finally:
+        mesh_lib.shutdown()
     print(f"trained to step {state.step}")
     return 0
 

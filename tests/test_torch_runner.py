@@ -67,11 +67,12 @@ def test_torch_gpt_runner_loads_a_gpt_checkpoint(tmp_path):
 
 
 def test_torch_gpt_runner_refuses_what_is_not_ported(tmp_path):
-    """Tensor parallelism is the one mode still refused (``remat`` and
-    ``content_bf16`` run: tests/test_torch_train_remat.py)."""
+    """Every mode is ported (tensor parallelism:
+    tests/test_torch_parallel_runner.py); what is refused is a mesh the
+    model does not divide: 3 model ranks for the 4 heads."""
     cfg = _cfg(tmp_path)
-    with pytest.raises(NotImplementedError, match="A13"):
-        run_gpt_training(cfg, device="cpu", n_model=2)
+    with pytest.raises(ValueError, match="divide"):
+        run_gpt_training(cfg, device="cpu", n_model=3)
 
 
 def test_torch_train_cli_smoke_on_cpu(tmp_path, monkeypatch, capsys):
@@ -89,8 +90,9 @@ def test_torch_train_cli_refuses_and_needs_a_card(tmp_path, monkeypatch, capsys)
     from genvc_tpu_torch import train_genVC
 
     monkeypatch.chdir(tmp_path)
+    # tensor parallelism needs its ranks: one process is told to launch them
     assert train_genVC.main(["--smoke", "--n_model", "2"]) == 2
-    assert "A13" in capsys.readouterr().err
+    assert "torchrun --nproc_per_node" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_genVC.main(["--smoke"])

@@ -174,7 +174,8 @@ def test_torch_server_soak(tp):
     sids = [server.submit(s, ref) for s in srcs]
     server.drain()
     assert len(server._free) == server.slots and not server._queue and not server._slot_map
-    assert int(server._pool.cur_index.max()) > server._pool.cache_k.shape[3]
+    pool = server._shards[0].pool
+    assert int(pool.cur_index.max()) > pool.cache_k.shape[3]
     for sid, src in zip(sids, srcs):
         wav, stats = server.pop_result(sid)
         assert stats["latency_s"] >= 0
@@ -217,10 +218,11 @@ def test_torch_server_max_queue_backpressure(tp):
 
 
 def _pool_state(server):
-    p = server._pool
+    (shard,) = server._shards
+    p = shard.pool
     return [x.clone() for x in (p.cache_k, p.cache_v, p.key_valid, p.cur_index,
                                 p.n_generated, p.last_token, p.seen, p.finished,
-                                server._carry, *server._row_params.values())]
+                                shard.carry, *shard.row_params.values())]
 
 
 @pytest.mark.parametrize("first_window", [8, 4])
@@ -280,11 +282,14 @@ def test_torch_admission_spillback_order(tp):
 
 def test_torch_server_zero_length_source_and_mesh(tp):
     """A zero-length source retires at once with empty audio; ``mesh=``
-    (sharding the pool) names the ROADMAP item that ports it."""
+    (sharding the pool) refuses a slot count its first axis does not divide,
+    as the JAX server does (tests/test_torch_parallel_serving.py runs it)."""
+    from genvc_tpu_torch.parallel.mesh import make_mesh
+
     (ref,) = _audio(5, (24000,))
     server = StreamServer(tp, slots=2)
     sid = server.submit(np.zeros((1, 0), np.float32), ref)
     assert server.finished(sid) and server.result(sid)[0].shape == (0,)
     assert not server.step()
-    with pytest.raises(NotImplementedError, match="A13"):
-        StreamServer(tp, slots=2, mesh=object())
+    with pytest.raises(ValueError, match="divide"):
+        StreamServer(tp, slots=3, mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))
