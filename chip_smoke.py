@@ -2555,6 +2555,9 @@ def check_sharded_serving(pipe, server_cls, srcs, refs, hold_srcs, da, fa, gpu, 
         sharded = server_cls(pipe, slots=8, mesh=mesh)
         if [len(sh.carry) for sh in sharded._shards] != [4, 4]:
             raise AssertionError("sharded server: not 2 shards of 4 rows")
+        if not sharded._shards[0].pipe is sharded._shards[1].pipe is pipe:
+            raise AssertionError("sharded server: the shards on the pipe's card copied "
+                                 "its weights")
         sids = [sharded.submit(s, r) for s, r in zip(hold_srcs, refs)]
         sharded.drain()
         worst = 0.0

@@ -23,19 +23,26 @@ class BatchLoader:
     The defaults are one process. A batch's random crops depend only on the
     seed, the epoch and the batch's index, and batches come in index order
     (the JAX loader seeds the crops by worker thread and yields batches as
-    they finish, so both depend on scheduling)."""
+    they finish, so both depend on scheduling). At most ``prefetch``
+    batches are collated ahead of the one the consumer waits for.
+
+    ``lockstep`` (implied by ``num_shards`` > 1): this loader feeds one of
+    several ranks that step together, so a batch that cannot be recovered
+    raises instead of being dropped; a rank that skipped it would pair its
+    collectives with the others' next step."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4,
                  prefetch: int = 4, seed: int = 0,
-                 num_shards: int = 1, shard_index: int = 0):
+                 num_shards: int = 1, shard_index: int = 0, lockstep: bool = False):
         assert 0 <= shard_index < num_shards
+        self.lockstep = lockstep or num_shards > 1
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
-        self.prefetch = prefetch
+        self.prefetch = max(1, prefetch)
         self.seed = seed
         self.epoch = 0
         self.num_shards = num_shards
@@ -109,18 +116,23 @@ class BatchLoader:
             batches.append(idx)
         self.epoch += 1
 
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        # claims run at most ``prefetch`` batches ahead of the one wanted,
+        # so the finished-but-early batches held below stay bounded
+        q: queue.Queue = queue.Queue()
         stop = threading.Event()
-        lock = threading.Lock()
-        cursor = {"i": 0}
+        cond = threading.Condition()
+        cursor = {"next": 0, "want": 0}
 
         def worker(wid):
-            while not stop.is_set():
-                with lock:
-                    i = cursor["i"]
-                    if i >= len(batches):
+            while True:
+                with cond:
+                    while (not stop.is_set() and cursor["next"] < len(batches)
+                           and cursor["next"] >= cursor["want"] + self.prefetch):
+                        cond.wait()
+                    i = cursor["next"]
+                    if stop.is_set() or i >= len(batches):
                         break
-                    cursor["i"] = i + 1
+                    cursor["next"] = i + 1
                 # the crops' random draws are seeded by the batch, not by the
                 # thread that happens to collate it: the ranks of one model
                 # group collate bit-identical batches at any worker count
@@ -151,7 +163,15 @@ class BatchLoader:
                 if want not in pending:
                     break
                 batch = pending.pop(want)
+                with cond:
+                    cursor["want"] = want + 1
+                    cond.notify_all()
                 if isinstance(batch, Exception):
+                    if self.lockstep:
+                        raise RuntimeError(
+                            f"batch {want} of the epoch cannot be collated, even with "
+                            "substituted samples; the ranks step together, so it is "
+                            "not dropped") from batch
                     # substitution already failed too — drop, but loudly
                     with self._stats_lock:
                         self.dropped_batches += 1
@@ -162,5 +182,7 @@ class BatchLoader:
                 yield batch
         finally:
             stop.set()
+            with cond:
+                cond.notify_all()
             for t in threads:
                 t.join(timeout=0.1)

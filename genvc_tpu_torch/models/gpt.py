@@ -24,6 +24,7 @@ from genvc_tpu_torch.models import perceiver
 from genvc_tpu_torch.ops import flash_attention as fa
 from genvc_tpu_torch.ops import nn as tnn
 from genvc_tpu_torch.parallel import collectives
+from genvc_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +148,14 @@ class GPT(nn.Module):
         self.text_head = tnn.Linear(d, cfg.number_text_tokens)
         self.mel_head = tnn.Linear(d, cfg.num_audio_tokens)
         self.perceiver = perceiver.Perceiver(dim=d)
+
+    def param_splits(self) -> dict:
+        """Name -> ``(dim, qkv)`` of each parameter this rank holds a shard
+        of (``parallel.mesh.split_dim`` / ``is_qkv``); empty on one card."""
+        if self.n_model == 1:
+            return {}
+        return {name: (d, mesh_lib.is_qkv(name)) for name, p in self.named_parameters()
+                if (d := mesh_lib.split_dim(name, p.dim())) is not None}
 
     @property
     def compute_dtype(self):

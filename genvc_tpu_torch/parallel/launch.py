@@ -27,15 +27,15 @@ def _child(rank, world, backend, init_file, device, fn, args, results):
     import torch
     import torch.distributed as dist
 
+    from genvc_tpu_torch.parallel.mesh import initialize_distributed
+
     try:
         torch.set_num_threads(1)
         dev = torch.device(device)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                           LOCAL_RANK=str(dev.index or 0) if dev.type == "cuda" else "0")
-        dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                world_size=world, rank=rank)
+        initialize_distributed(backend, init_method=f"file://{init_file}",
+                               world_size=world, rank=rank, device=dev)
         try:
             out = fn(rank, dev, *args)
         finally:

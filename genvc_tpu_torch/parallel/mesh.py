@@ -14,9 +14,17 @@ process per device, joined by ``torch.distributed``:
 * a single process may also build a mesh over several devices (the sharded
   ``StreamServer``); it has no groups.
 
-The transport is chosen up front (:func:`choose_backend`), never by catching
-a failure: NCCL when each rank has its own card, gloo on the CPU and when
-ranks share one card (NCCL refuses two ranks on one device).
+The transport is chosen up front, never by catching a failure: NCCL when
+each rank has its own card, gloo on the CPU and when ranks share one card
+(NCCL refuses two ranks on one device). Each rank votes from what it sees
+(:func:`choose_backend`) and all take one backend from every vote
+(:func:`agree_backend`) before the group is made.
+
+The layout of a tensor-parallel GPT lives here: which dimension of each
+leaf splits (:func:`split_dim`, head-aligned for ``c_attn``:
+:func:`is_qkv`), a leaf's shard and its inverse (:func:`take_shard`,
+:func:`join_shards`). :func:`shard_tree` cuts a whole tree for a rank; the
+way back is the flat vector's (``train.optim.FlatParams.gather``).
 
 Deviations from the JAX mesh: a repeated device is accepted (two server
 shards on one card), and a batch that the data axis does not divide raises
@@ -81,18 +89,31 @@ def default_device() -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
-def choose_backend(device, local_world_size: int | None = None) -> str:
-    """NCCL when the rank runs on a card of its own (``cuda:<LOCAL_RANK>``,
-    as many cards as local ranks); gloo on the CPU and when ranks share a
-    card."""
+def choose_backend(device) -> str:
+    """This rank's own view: NCCL when it runs on a card of its own
+    (``cuda:<LOCAL_RANK>``, as many cards as ``LOCAL_WORLD_SIZE`` local
+    ranks); gloo on the CPU and when ranks share a card. The ranks settle
+    on one backend from every rank's view (:func:`agree_backend`)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return "gloo"
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", 1))
-                if local_world_size is None else local_world_size)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", 1)))
     own_card = (dev.index if dev.index is not None else 0) == int(
         os.environ.get("LOCAL_RANK", 0))
     return "nccl" if own_card and local <= torch.cuda.device_count() else "gloo"
+
+
+def agree_backend(votes: list) -> str:
+    """The one backend of every rank's ``(backend, explicit)`` vote: the
+    common one when all agree; gloo when automatic choices differ (one rank
+    on a shared card makes NCCL impossible for all); a ``ValueError`` when
+    a backend asked for explicitly is not everyone's."""
+    names = {b for b, _ in votes}
+    if len(names) == 1:
+        return names.pop()
+    if any(explicit for _, explicit in votes):
+        raise ValueError(f"the ranks ask for different backends: {sorted(names)}")
+    return "gloo"
 
 
 def initialize_distributed(backend: str | None = None, init_method: str | None = None,
@@ -103,9 +124,12 @@ def initialize_distributed(backend: str | None = None, init_method: str | None =
     Reads torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR`` / ``MASTER_PORT`` through ``init_method="env://"``) where
     an argument is not given. Does nothing and returns None when the world
-    has one process; else returns the backend, which is ``backend`` or
-    :func:`choose_backend` of ``device`` (default :func:`default_device`).
-    A CUDA device becomes the process's current device."""
+    has one process; else returns the backend. Each rank votes ``backend``,
+    or :func:`choose_backend` of ``device`` (default :func:`default_device`);
+    the votes are exchanged through the rendezvous store before the group is
+    made, and every rank takes :func:`agree_backend` of them, so no two
+    ranks join with different backends. A CUDA device becomes the
+    process's current device."""
     world = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else int(world_size)
     if world <= 1:
         return None
@@ -113,12 +137,20 @@ def initialize_distributed(backend: str | None = None, init_method: str | None =
         return dist.get_backend()
     rank = int(os.environ["RANK"]) if rank is None else int(rank)
     dev = default_device() if device is None else torch.device(device)
-    backend = choose_backend(dev) if backend is None else backend
+    vote = backend or choose_backend(dev)
+    store, rank, world = next(dist.rendezvous(init_method or "env://", rank, world))
+    votes_store = dist.PrefixStore("genvc_backend", store)
+    votes_store.set(str(rank), f"{vote},{int(backend is not None)}")
+    votes = []
+    for r in range(world):
+        b, explicit = votes_store.get(str(r)).decode().split(",")
+        votes.append((b, explicit == "1"))
+    agreed = agree_backend(votes)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=init_method or "env://",
+    dist.init_process_group(agreed, store=dist.PrefixStore("default_pg", store),
                             world_size=world, rank=rank)
-    return backend
+    return agreed
 
 
 def world_size() -> int:
@@ -294,46 +326,6 @@ def shard_tree(tree, specs, mesh: Mesh, rank: int | None = None):
         return x if d is None or n == 1 else take_shard(x, d, n, m, is_qkv(path))
 
     return _map2(tree, specs, leaf)
-
-
-def unshard_tree(shards: list, specs):
-    """Join the trees of all model indices (in order) into the full tree."""
-
-    def rec(nodes, spec, path):
-        if isinstance(nodes[0], dict):
-            return {k: rec([t[k] for t in nodes], spec[k], f"{path}/{k}") for k in nodes[0]}
-        if isinstance(nodes[0], (list, tuple)):
-            return [rec([t[i] for t in nodes], spec[i], f"{path}/{i}")
-                    for i in range(len(nodes[0]))]
-        d = _spec_dim(spec)
-        return nodes[0] if d is None else join_shards(nodes, d, is_qkv(path))
-
-    return rec(list(shards), specs, "")
-
-
-def gather_tree(tree, specs, mesh: Mesh):
-    """The full tree from every rank's shard (:func:`shard_tree` reversed),
-    one ``all_gather`` per split leaf over the model group; every rank of the
-    group must call it. numpy leaves come back numpy."""
-    if mesh.n_model == 1:
-        return tree
-    from genvc_tpu_torch.parallel import collectives
-
-    def leaf(path, x, spec):
-        d = _spec_dim(spec)
-        if d is None:
-            return x
-        was_np = not torch.is_tensor(x)
-        t = torch.as_tensor(x).to(mesh.device)
-        full = join_shards(collectives.all_gather(t, mesh.model_group), d, is_qkv(path))
-        return full.cpu().numpy() if was_np else full
-
-    return _map2(tree, specs, leaf)
-
-
-def replicate_tree(tree, mesh: Mesh):
-    """Every leaf as a tensor on this rank's device."""
-    return _map_with_path(tree, lambda _, x: torch.as_tensor(x).to(mesh.device).clone())
 
 
 def batch_sharding(mesh: Mesh, batch_size: int) -> slice:

@@ -177,10 +177,9 @@ def gpt_train(rank, device, spec):
                                       params.sharded) if not sh]
         out["replicated_digest"] = digest(rep)
         if spec.get("return_params"):
-            tree = ckpt.export_tree(model)
-            if n_model > 1:
-                tree = mesh_lib.gather_tree(tree, mesh_lib.gpt_param_specs(tree), mesh)
-            out["params"] = tree if rank == 0 else None
+            whole = (gpt_stage.whole_gpt(gcfg, params, params.gather(params.flat, mesh))
+                     if n_model > 1 else model)
+            out["params"] = ckpt.export_tree(whole) if rank == 0 else None
         results.append(out)
         del state, model, params, opt
     return results

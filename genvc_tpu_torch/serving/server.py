@@ -97,6 +97,15 @@ class _Shard:
     row_params: dict               # (rows,) tensors
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current card, so
+    ``cuda`` and ``cuda:0`` compare equal there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _replica(pipe, device):
     """``pipe`` with its modules copied to ``device``."""
     rep = copy.copy(pipe)
@@ -237,10 +246,11 @@ class StreamServer:
         rows = self.slots // len(devices)
         pipes = {}  # one copy of the weights per distinct device
         self._shards = []
+        home = _indexed(pipe.device)
         for i, dev in enumerate(devices):
-            dev = torch.device(dev)
+            dev = _indexed(dev)
             if dev not in pipes:
-                pipes[dev] = pipe if dev == torch.device(pipe.device) else _replica(pipe, dev)
+                pipes[dev] = pipe if dev == home else _replica(pipe, dev)
             sp = pipes[dev]
             pool = engine.init_state(gcfg, sp._prefix_width, rows, sp.device,
                                      cache_dtype=sp.cache_dtype, generator=sp.generator,

@@ -142,15 +142,30 @@ class GPTTrainState:
 
     def state_dict(self) -> dict:
         """The whole model's state in the single-card layout: under tensor
-        parallelism the shards are gathered over the model group (every
-        rank must call it), so a checkpoint resumes at any ``n_model``."""
-        tree, opt = ckpt_lib.export_tree(self.model), self.opt.state_dict()
+        parallelism the flat parameters and moments are gathered over the
+        model group (every rank must call it), so a checkpoint resumes at
+        any ``n_model``."""
+        model, opt = self.model, self.opt.state_dict()
         if self.mesh is not None and self.mesh.n_model > 1:
-            tree = mesh_lib.gather_tree(tree, mesh_lib.gpt_param_specs(tree), self.mesh)
+            model = whole_gpt(model.cfg, self.params,
+                              self.params.gather(self.params.flat, self.mesh))
             opt = dict(opt, mu=self.params.gather(opt["mu"], self.mesh),
                        nu=self.params.gather(opt["nu"], self.mesh))
-        return {"step": self.step, "params": tree, "opt_state": opt,
+        return {"step": self.step, "params": ckpt_lib.export_tree(model), "opt_state": opt,
                 "names": self.params.names}
+
+
+def whole_gpt(cfg, params: FlatParams, full, device="cpu") -> gpt_model.GPT:
+    """The single-card GPT of ``cfg`` whose parameters are the whole
+    model's flat vector ``full`` (``params.gather`` of a tensor-parallel
+    GPT), on ``device``."""
+    with torch.device("meta"):
+        model = gpt_model.GPT(cfg)
+    for name, t in params.whole_views(full).items():
+        mod_name, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(mod_name), leaf,
+                torch.nn.Parameter(t.to(device), requires_grad=False))
+    return model
 
 
 def loss_fn(model, tensors, feats, text_ce_weight, mel_ce_weight,

@@ -86,10 +86,11 @@ class FlatParams:
     views of ``flat``, so they always hold the current values; the training
     forward takes :meth:`tensors` through ``torch.func.functional_call``.
 
-    A tensor-parallel GPT (``n_model`` > 1) holds the rank's shards:
-    ``sharded[i]`` says whether segment ``i`` is split over the model group
-    (``parallel.mesh.split_dim``); the names and their order are those of
-    the whole model, so :meth:`gather` gives the single-card layout."""
+    A tensor-parallel GPT (``n_model`` > 1) holds the rank's shards and
+    hands over their layout (``param_splits``): ``splits[i]`` is segment
+    ``i``'s ``(dim, qkv)`` over the model group, or None when it is whole on
+    every rank. The names and their order are those of the whole model, so
+    :meth:`gather` gives the single-card layout."""
 
     def __init__(self, module: nn.Module):
         named = list(module.named_parameters())
@@ -98,8 +99,9 @@ class FlatParams:
         self.shapes = [tuple(p.shape) for _, p in named]
         self.sizes = [p.numel() for _, p in named]
         self.n_model = getattr(module, "n_model", 1)
-        self.sharded = [self.n_model > 1 and mesh_lib.split_dim(n, len(s)) is not None
-                        for n, s in zip(self.names, self.shapes)]
+        splits = module.param_splits() if hasattr(module, "param_splits") else {}
+        self.splits = [splits.get(n) for n in self.names]
+        self.sharded = [s is not None for s in self.splits]
         self.n_decay = sum(s for (n, _), s in zip(named, self.sizes)
                            if decays(n.split(".")))
         self.flat = torch.cat([p.detach().reshape(-1).float() for _, p in named])
@@ -135,39 +137,60 @@ class FlatParams:
             pos += size
         return out
 
+    def whole_shapes(self) -> list:
+        """Each segment's shape in the whole model."""
+        out = []
+        for shape, split in zip(self.shapes, self.splits):
+            shape = list(shape)
+            if split is not None:
+                shape[split[0]] *= self.n_model
+            out.append(tuple(shape))
+        return out
+
+    def whole_views(self, full) -> dict:
+        """Name -> view of the whole model's flat vector ``full`` in the
+        whole parameter's shape (:meth:`views` of the single-card layout)."""
+        shapes = self.whole_shapes()
+        sizes = [int(torch.Size(s).numel()) for s in shapes]
+        full = torch.as_tensor(full)
+        if len(full) != sum(sizes):
+            raise ValueError(f"flat vector of {len(full)} elements, the model has "
+                             f"{sum(sizes)}")
+        return {n: t.view(s) for n, t, s in zip(self.names, torch.split(full, sizes), shapes)}
+
+    def join(self, vecs) -> torch.Tensor:
+        """The whole model's flat vector (on the host) from every model
+        index's flat vector ``vecs`` (in order): each sharded segment joined
+        as ``parallel.mesh.join_shards``, the others taken from the first."""
+        if len(vecs) != self.n_model:
+            raise ValueError(f"{len(vecs)} flat vectors for {self.n_model} model ranks")
+        segs = [torch.split(v.detach().float().cpu(), self.sizes) for v in vecs]
+        parts = []
+        for i, (shape, split) in enumerate(zip(self.shapes, self.splits)):
+            if split is None:
+                parts.append(segs[0][i])
+            else:
+                pieces = [s[i].view(shape) for s in segs]
+                parts.append(mesh_lib.join_shards(pieces, *split).reshape(-1))
+        return torch.cat(parts)
+
     def gather(self, vec, mesh) -> torch.Tensor:
         """The whole model's flat vector (single-card layout, on the host)
         from every rank's ``vec`` (the parameters or a moment): one
-        ``all_gather`` per sharded segment over the model group."""
-        parts = []
-        for name, shape, seg, sh in zip(self.names, self.shapes,
-                                        torch.split(vec.detach(), self.sizes), self.sharded):
-            if sh:
-                d = mesh_lib.split_dim(name, len(shape))
-                pieces = collectives.all_gather(seg.view(shape).contiguous(), mesh.model_group)
-                seg = mesh_lib.join_shards(pieces, d, mesh_lib.is_qkv(name)).reshape(-1)
-            parts.append(seg.float().cpu())
-        return torch.cat(parts)
+        ``all_gather`` of the flat vector over the model group, then
+        :meth:`join`. Every rank of the group must call it."""
+        if self.n_model == 1:
+            return vec.detach().float().cpu()
+        return self.join(collectives.all_gather(vec.detach(), mesh.model_group))
 
     def shard(self, full, rank: int) -> torch.Tensor:
         """This rank's flat vector from the whole model's (:meth:`gather`
         reversed; ``rank`` gives the model index)."""
-        parts, pos = [], 0
-        for name, shape, sh in zip(self.names, self.shapes, self.sharded):
-            d = mesh_lib.split_dim(name, len(shape))
-            whole = list(shape)
-            if sh:
-                whole[d] *= self.n_model
-            n = int(torch.Size(whole).numel())
-            seg = torch.as_tensor(full[pos:pos + n]).view(whole)
-            pos += n
-            if sh:
-                seg = mesh_lib.take_shard(seg, d, self.n_model, rank % self.n_model,
-                                          mesh_lib.is_qkv(name))
-            parts.append(seg.reshape(-1))
-        if pos != len(full):
-            raise ValueError(f"flat vector of {len(full)} elements, the model has {pos}")
-        return torch.cat(parts)
+        m = rank % self.n_model
+        return torch.cat([
+            (w if split is None else mesh_lib.take_shard(w, split[0], self.n_model, m,
+                                                         split[1])).reshape(-1)
+            for w, split in zip(self.whole_views(full).values(), self.splits)])
 
 
 def global_norm(x, params: FlatParams | None = None, model_group=None):

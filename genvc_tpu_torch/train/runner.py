@@ -91,10 +91,12 @@ def _loaders(cfg, train_ds, eval_ds, mesh=None):
     for what, b in (("batch_size", cfg.batch_size), ("eval_batch_size", cfg.eval_batch_size)):
         if b % n:
             raise ValueError(f"{what} {b} does not divide over {n} data ranks")
+    lockstep = mesh is not None  # a lost batch raises, never desynchronises ranks
     return (BatchLoader(train_ds, cfg.batch_size // n, num_workers=cfg.num_loader_workers,
-                        num_shards=n, shard_index=i),
+                        num_shards=n, shard_index=i, lockstep=lockstep),
             BatchLoader(eval_ds, cfg.eval_batch_size // n, shuffle=False,
-                        num_workers=cfg.num_loader_workers, num_shards=n, shard_index=i))
+                        num_workers=cfg.num_loader_workers, num_shards=n, shard_index=i,
+                        lockstep=lockstep))
 
 
 def _check_names(restored_names, params: optim.FlatParams):
@@ -288,15 +290,12 @@ def run_gpt_training(cfg: GenVCConfig, max_steps: int | None = None,
         # gathered first, on every rank (a collective), then rank 0 samples.
         model = state.model
         if tp:
-            tree = ckpt_lib.export_tree(model)
-            tree = mesh_lib.gather_tree(tree, mesh_lib.gpt_param_specs(tree), mesh)
+            full = state.params.gather(state.params.flat, mesh)
         if not logger.is_main:
             return
         try:
             if tp:
-                with torch.device("meta"):
-                    model = gpt_model.GPT(gcfg)
-                ckpt_lib.assign(model, tree, dev)
+                model = gpt_stage.whole_gpt(gcfg, state.params, full, dev)
             from genvc_tpu_torch.dsp.audio_io import write_wav
             from genvc_tpu_torch.train.eval_samples import generate_eval_samples
 

@@ -105,16 +105,16 @@ def _leaves_of_layer(blocks, i):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_torch_shard_gather_round_trip_is_exact(stage, n):
-    """``shard_tree`` for each model index and ``unshard_tree`` give back the
-    tree bit for bit; each rank's ``c_attn`` holds its heads' q, k and v
-    columns, and the row-parallel weights its heads' rows."""
+    """``shard_tree`` for each model index, loaded into that rank's GPT, and
+    the flat vectors joined back (``FlatParams.join``, what ``gather`` does
+    after its all-gather) give the whole model's flat vector bit for bit,
+    and ``FlatParams.shard`` of it gives each rank's back; each rank's
+    ``c_attn`` holds its heads' q, k and v columns, and the row-parallel
+    weights its heads' rows."""
     tree = stage["gpt"]
     specs = tmesh.gpt_param_specs(tree)
     mesh = tmesh.make_mesh(n_data=1, n_model=n, devices=["cpu"] * n)
     shards = [tmesh.shard_tree(tree, specs, mesh, rank=m) for m in range(n)]
-    back = tmesh.unshard_tree(shards, specs)
-    for (path, a), (_, b) in zip(_leaves(tree), _leaves(back)):
-        np.testing.assert_array_equal(a, b, err_msg=path)
     d, hd = GCFG["model_dim"], GCFG["model_dim"] // GCFG["heads"]
     w = tree["core"]["blocks"]["attn"]["c_attn"]["w"]
     width = d // n
@@ -131,17 +131,29 @@ def test_torch_shard_gather_round_trip_is_exact(stage, n):
                                       [:, m * width:(m + 1) * width])
         np.testing.assert_array_equal(sh["core"]["blocks"]["attn"]["c_proj"]["b"],
                                       tree["core"]["blocks"]["attn"]["c_proj"]["b"])
-    # the flat vector's gather / shard pair on the same layout
-    with torch.device("meta"):
-        model = tgpt.GPT(tgpt.GPTConfig(**GCFG), n)
-    tck.assign(model, shards[1], "cpu")
-    params = toptim.FlatParams(model)
+    ranks = []
+    for sh in shards:
+        with torch.device("meta"):
+            model = tgpt.GPT(tgpt.GPTConfig(**GCFG), n)
+        tck.assign(model, sh, "cpu")
+        ranks.append(toptim.FlatParams(model))
+    assert sum(ranks[0].sharded) == 6 * GCFG["layers"]
     with torch.device("meta"):
         whole = tgpt.GPT(tgpt.GPTConfig(**GCFG))
     tck.assign(whole, tree, "cpu")
-    full = toptim.FlatParams(whole).flat.detach()
-    assert params.names == toptim.FlatParams(whole).names
-    torch.testing.assert_close(params.shard(full, 1), params.flat.detach(), rtol=0, atol=0)
+    wparams = toptim.FlatParams(whole)
+    assert ranks[0].names == wparams.names
+    assert ranks[0].whole_shapes() == wparams.shapes
+    full = ranks[0].join([p.flat for p in ranks])
+    torch.testing.assert_close(full, wparams.flat.detach(), rtol=0, atol=0)
+    for m, p in enumerate(ranks):
+        torch.testing.assert_close(p.shard(full, m), p.flat.detach(), rtol=0, atol=0)
+    # the whole GPT built from the joined vector exports the loaded tree
+    back = dict(_leaves(tck.export_tree(tstage.whole_gpt(tgpt.GPTConfig(**GCFG),
+                                                           ranks[0], full))))
+    assert set(back) == set(dict(_leaves(tree)))
+    for path, a in _leaves(tree):
+        np.testing.assert_array_equal(a, back[path], err_msg=path)
 
 
 def test_torch_mesh_and_batch_shards():
@@ -160,6 +172,24 @@ def test_torch_mesh_and_batch_shards():
         tmesh.shard_batch({"x": np.arange(7)}, mesh)
     assert tmesh.choose_backend("cpu") == "gloo"
     assert tmesh.initialize_distributed(world_size=1) is None
+
+
+@pytest.mark.parametrize("votes,want", [
+    ([("nccl", False), ("nccl", False)], "nccl"),
+    ([("gloo", True), ("gloo", False)], "gloo"),
+    # one rank names a card it does not own: NCCL is out for every rank
+    ([("nccl", False), ("gloo", False), ("gloo", False)], "gloo"),
+    ([("nccl", True), ("gloo", True)], ValueError),
+    ([("nccl", True), ("gloo", False)], ValueError),
+])
+def test_torch_ranks_agree_on_one_backend(votes, want):
+    """Every rank takes the same backend from the same votes, or every rank
+    raises: no group is made of mismatched backends."""
+    if want is ValueError:
+        with pytest.raises(ValueError, match="different backends"):
+            tmesh.agree_backend(votes)
+    else:
+        assert tmesh.agree_backend(votes) == want
 
 
 # -------------------------------------------------------- tensor parallelism

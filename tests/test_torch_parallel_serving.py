@@ -63,6 +63,19 @@ def test_torch_sharded_server_matches_unsharded(bundle):
         StreamServer(tp, slots=3, mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))
 
 
+@pytest.mark.cuda
+def test_torch_sharded_server_shares_the_pipes_card(bundle):
+    """A pipe built on ``cuda`` (no index) and a mesh naming ``cuda:0``
+    twice: both shards use the pipe itself, with no second copy of the
+    weights and the pipe's generator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tp = tpipe.model_init(bundle, device="cuda")
+    card = f"cuda:{torch.cuda.current_device()}"
+    server = StreamServer(tp, slots=2, mesh=make_mesh(n_data=2, devices=[card, card]))
+    assert server._shards[0].pipe is server._shards[1].pipe is tp
+
+
 def _capped_bundle(bundle, path):
     """The synthetic bundle with 64 mel tokens: ``gpt_max_audio_tokens`` 64
     and the position table cut to its 67 rows."""

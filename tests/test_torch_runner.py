@@ -159,6 +159,58 @@ def test_torch_loader_drops_unrecoverable_batch():
     assert ld.dropped_batches == 1
 
 
+@pytest.mark.parametrize("shards", [dict(num_shards=2, shard_index=0), dict(lockstep=True)])
+def test_torch_loader_raises_on_unrecoverable_batch_in_lockstep(shards):
+    """Ranks that step together (data shards, or a model group) never drop a
+    batch: a rank that skipped one would pair its collectives with the
+    others' next step."""
+    class BrokenDataset:
+        def __len__(self):
+            return 16
+
+        def collate(self, idx, rng):
+            if len(idx) > 1 and any(i >= 4 for i in idx):
+                raise ValueError("batch-level failure")
+            return list(idx)
+
+    ld = BatchLoader(BrokenDataset(), batch_size=4, shuffle=False, num_workers=2, seed=0,
+                     **shards)
+    with pytest.raises(RuntimeError, match="not dropped") as err:
+        list(ld)
+    assert isinstance(err.value.__cause__, ValueError)
+    assert ld.dropped_batches == 0
+
+
+def test_torch_loader_prefetch_bounds_batches_ahead():
+    """A slow first batch holds the workers at ``prefetch`` batches claimed:
+    the batches collated ahead of the one awaited stay bounded; all come in
+    index order."""
+    import threading
+    import time
+
+    class SlowFirst:
+        def __init__(self):
+            self.claimed, self.lock = [], threading.Lock()
+
+        def __len__(self):
+            return 64
+
+        def collate(self, idx, rng):
+            with self.lock:
+                self.claimed.append(idx[0] // 4)
+            if idx[0] == 0:
+                time.sleep(0.3)
+            return list(idx)
+
+    ds = SlowFirst()
+    ld = BatchLoader(ds, batch_size=4, shuffle=False, num_workers=4, prefetch=2, seed=0)
+    it = iter(ld)
+    assert next(it) == [0, 1, 2, 3]
+    assert sorted(ds.claimed) == [0, 1]
+    rest = list(it)
+    assert [b[0] // 4 for b in rest] == list(range(1, 16))
+
+
 def test_torch_dataset_collate_matches_jax(tmp_path):
     """The port's dataset copy gives the JAX package's batches (same files,
     same seeds)."""
