@@ -1,0 +1,6 @@
+"""Share of the traced calls' wall time in which no kernel ran, in %."""
+
+
+def read(record):
+    tr = record["trace"]
+    return 100.0 * (1.0 - tr.busy_s() / tr.wall_s)
