@@ -5,7 +5,10 @@ into ``_build/lib<name>-<hash>.so`` (the hash is of the source and the
 shared ``csrc/*.cuh`` headers, so an edited kernel or header rebuilds), which
 is loaded with ``ctypes``. Nothing here runs at import time: the first launch
 of a kernel builds it, and :func:`build_all` builds several at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together. Recorded (``tracing``):
+the span ``genvc.kernel_build`` around each :func:`build_all`, and per source
+the counter ``kernels.built.<name>`` (``nvcc`` ran) or ``kernels.loaded.<name>``
+(the library was found in ``_build/``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+from genvc_tpu_torch import tracing
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -82,8 +87,10 @@ def _finish(name: str, started) -> str:
 def build_all(names) -> dict[str, str]:
     """Compile every named kernel source in parallel; returns nvcc's output
     (register and shared-memory use from ``-Xptxas -v``) per name."""
-    with _lock:
+    with _lock, tracing.span("genvc.kernel_build"):
         started = {n: _start(n) for n in names}
+        for n, s in started.items():
+            tracing.count(f"kernels.{'loaded' if s is None else 'built'}.{n}")
         return {n: _finish(n, s) for n, s in started.items()}
 
 

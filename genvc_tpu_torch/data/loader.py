@@ -4,6 +4,9 @@ Replaces the reference's torch DataLoader worker processes (dataset.py:12,
 trainers/*.get_data_loader): wav decode + crop + collate run in a thread pool
 (numpy releases the GIL for IO and resampling), with a bounded prefetch queue,
 so the card does not wait on IO.
+
+Recorded (``tracing``): the span ``genvc.loader.wait`` from asking for a batch
+until it is in hand, with the batch's index in its epoch.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import logging
 import queue
 import random
 import threading
+
+from genvc_tpu_torch import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -154,12 +159,13 @@ class BatchLoader:
         pending = {}
         try:
             for want in range(len(batches)):
-                while want not in pending and finished < self.num_workers:
-                    i, batch = q.get()
-                    if i is None:
-                        finished += 1
-                    else:
-                        pending[i] = batch
+                with tracing.span("genvc.loader.wait", want):
+                    while want not in pending and finished < self.num_workers:
+                        i, batch = q.get()
+                        if i is None:
+                            finished += 1
+                        else:
+                            pending[i] = batch
                 if want not in pending:
                     break
                 batch = pending.pop(want)

@@ -6,7 +6,8 @@
 * ``decode_chunk`` runs N single-token steps and returns N (token, latent)
   pairs; ``decode_all`` runs steps until every row has stopped or the cap
   (non-streaming synthesis). The cache is updated IN PLACE (JAX returns new
-  arrays);
+  arrays). Both add the steps they ran to the recorder's ``engine.steps``
+  counter (``tracing``), once per call;
 * ``decode_beam`` (beam search and beam_sample), ``decode_group_beam``,
   ``decode_constrained`` and ``decode_contrastive`` search one hypothesis
   tiled over the batch (see the section at the end of this file).
@@ -45,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from genvc_tpu_torch import tracing
 from genvc_tpu_torch.decode.constraints import PhraseListState, completes_all
 from genvc_tpu_torch.models import gpt as gpt_model
 from genvc_tpu_torch.ops import decode_attention as da
@@ -299,6 +301,7 @@ def decode_all(model: gpt_model.GPT, state: DecodeState, sampler: SamplerConfig,
         tok, _ = _decode_one(model, state, sampler)
         buf[:, slot] = tok
         steps += 1
+    tracing.count("engine.steps", steps)
     is_stop = buf == stop
     first_stop = torch.argmax(is_stop.int(), dim=1)
     n_gen = torch.where(is_stop.any(dim=1), first_stop + 1,
@@ -318,6 +321,7 @@ def decode_chunk(model: gpt_model.GPT, state: DecodeState, sampler: SamplerConfi
         tok, latent = _decode_one(model, state, sampler, row_params)
         toks.append(tok)
         lats.append(latent)
+    tracing.count("engine.steps", chunk)
     return torch.stack(toks, 1), torch.stack(lats, 1), torch.stack(pre_fin, 1)
 
 

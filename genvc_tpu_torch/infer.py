@@ -32,7 +32,9 @@ takes a reference ``.pth`` bundle or a converted ``.npz`` bundle (beside its
 ``<stem>.config.json``; ``python -m genvc_tpu_torch.tools.convert_checkpoint``).
 ``--serve`` without ``--src_wavs --streaming`` exits with code 2.
 ``--profile DIR`` records a ``torch.profiler`` trace of the conversion (after
-the models are loaded; the card's kernels included) into ``DIR/trace.json``.
+the models are loaded; the card's kernels included) into ``DIR/trace.json``,
+and the recorder's counters (``genvc_tpu_torch.tracing``) into
+``DIR/counters.json``.
 """
 
 from __future__ import annotations
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
                         help="int8 W8A8 GPT linears")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="record a torch.profiler trace of the conversion into "
-                             "DIR/trace.json (Chrome trace format)")
+                             "DIR/trace.json (Chrome trace format) and the recorder's "
+                             "counters into DIR/counters.json")
     args = parser.parse_args(argv)
 
     if args.serve > 0 and not (args.src_wavs and args.streaming):

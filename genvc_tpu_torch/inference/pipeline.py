@@ -37,9 +37,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from genvc_tpu_torch import resolve_device
+from genvc_tpu_torch import resolve_device, tracing
 from genvc_tpu_torch.checkpoint import (Modules, convert_bundle, load_jax_tree,
                                         load_npz_bundle)
 from genvc_tpu_torch.config import GenVCConfig
@@ -110,6 +109,7 @@ class GenVCPipeline:
         # 8-token cadence; STREAM_CHUNK mirrors the reference exactly
         self.first_chunk_tokens: int = 4
         self.last_timing: dict = {}
+        self._stream_calls = 0  # the request id of synthesize_streaming's spans
         self._cond_latent = None
 
     # ------------------------------------------------------------ host maths
@@ -441,26 +441,26 @@ class GenVCPipeline:
         forwards run), as :meth:`generate_segment_codes` returns them."""
         timing = self.last_timing = {"decode_steps": 0, "latent_passes": 0}
         stop = self.gpt_cfg.stop_audio_token
-        with record_function("genvc.cond_latents"):
+        with tracing.span("genvc.cond_latents"):
             self._cond_latent = self.get_gpt_cond_latents(ref_audio)
         final = []
         for seg, t_real in self._segments(src_wav):
-            with record_function("genvc.content_codes"):
+            with tracing.span("genvc.content_codes"):
                 codes, n_code = self.extract_content_codes(seg, t_real)
-            with record_function("genvc.decode"):
+            with tracing.span("genvc.decode"):
                 toks, steps = decode_segment(codes, n_code)
             timing["decode_steps"] += steps
             gen = [int(t) for t in toks if t != stop]
             if not gen:
                 continue
-            with record_function("genvc.latent_pass"):
+            with tracing.span("genvc.latent_pass"):
                 lat = self._latent_pass(codes, [n_code], [gen], self._cond_latent)
             timing["latent_passes"] += 1
             final.append(lat[0, : len(gen)])
         if not final:
             # every segment decoded straight to the stop token
             return np.zeros((0,), np.float32)
-        with record_function("genvc.vocode"):
+        with tracing.span("genvc.vocode"):
             return self._vocode_utterance(torch.cat(final))
 
     @torch.inference_mode()
@@ -504,6 +504,8 @@ class GenVCPipeline:
         counts the AR steps run."""
         begin = time.perf_counter()
         timing = self.last_timing = {}
+        call = self._stream_calls
+        self._stream_calls += 1
         stop = self.gpt_cfg.stop_audio_token
         csz = STREAM_CHUNK
         d = self.gpt_cfg.model_dim
@@ -524,12 +526,12 @@ class GenVCPipeline:
         self._cond_latent = None
         for seg, t_real in self._segments(src_wav):
             if self._cond_latent is None:
-                with record_function("genvc.cond_latents"):
+                with tracing.span("genvc.cond_latents", call):
                     self._cond_latent = self.get_gpt_cond_latents(ref_audio)
                 win = max(1, min(self.first_chunk_tokens, csz))
             else:
                 win = csz
-            with record_function("genvc.prefill"):
+            with tracing.span("genvc.prefill", call):
                 state, _, lat0, _, _ = self._start_segment(seg, [t_real],
                                                            self._cond_latent)
             max_new = self._max_new(self._host_n_codes(t_real))
@@ -537,21 +539,23 @@ class GenVCPipeline:
             n_total = 1
             first_chunk = True
             while True:
-                with record_function("genvc.decode"):
-                    toks, lats, pre_fin = engine.decode_chunk(self.gpt, state,
-                                                              self.sampler, chunk=k)
-                    all_lats = torch.cat([carry, lats], dim=1)
-                    toks_np = toks[0].cpu().numpy()
+                with tracing.span("genvc.decode", call):
+                    with tracing.span("genvc.decode.enqueue", call):
+                        toks, lats, pre_fin = engine.decode_chunk(self.gpt, state,
+                                                                  self.sampler, chunk=k)
+                        all_lats = torch.cat([carry, lats], dim=1)
+                    with tracing.span("genvc.decode.readback", call):
+                        toks_np = toks[0].cpu().numpy()
                 timing["decode_steps"] = timing.get("decode_steps", 0) + k
                 if first_chunk and bool(pre_fin[0, 0]):
                     # EOS on the prefill-sampled token: vocode that latent only
-                    with record_function("genvc.vocode"):
+                    with tracing.span("genvc.vocode", call):
                         emit(self._vocode_tail(all_lats, 0, 0, 1, win))
                     break
                 first_chunk = False
                 eos_j, _, full, rem = window_accounting(
                     toks_np, n_total, max_new, stop, carry_n, win)
-                with record_function("genvc.vocode"):
+                with tracing.span("genvc.vocode", call):
                     if full:
                         wavs = self.vocode(all_lats[:, : full * win].reshape(full, win, d))
                         for w in range(full):

@@ -48,8 +48,8 @@ from collections import deque
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from genvc_tpu_torch import tracing
 from genvc_tpu_torch.decode import engine
 from genvc_tpu_torch.inference.pipeline import (CROSSFADE, STREAM_CHUNK, _handle_chunk,
                                                 window_accounting)
@@ -438,7 +438,7 @@ class StreamServer:
                 self._n_admissions += 1
                 if s.admit_t is None:
                     s.admit_t = now
-            with record_function("genvc.admit"):
+            with tracing.span("genvc.admit"):
                 self._start_segments(wave, slots)
 
     @torch.inference_mode()
@@ -509,12 +509,12 @@ class StreamServer:
         if not self._slot_map and not self._inflight:
             return False
         while self._slot_map and len(self._inflight) < self.depth:
-            with record_function("genvc.tick"):
+            with tracing.span("genvc.tick"):
                 self._dispatch_tick()
         if not self._inflight:
             return False
         tick, epochs = self._inflight.popleft()
-        with record_function("genvc.fetch"):
+        with tracing.span("genvc.fetch"):
             toks_np, pre_fin_np, wavs_np = tick.fetch()
 
         k = STREAM_CHUNK

@@ -24,9 +24,8 @@ import dataclasses
 
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
-from genvc_tpu_torch import checkpoint as ckpt_lib
+from genvc_tpu_torch import checkpoint as ckpt_lib, tracing
 from genvc_tpu_torch.config import GenVCConfig
 from genvc_tpu_torch.dsp import mel as mel_mod
 from genvc_tpu_torch.dsp.resample import resample
@@ -205,7 +204,8 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
     per-module gradient L2 norms (``grad_norm/<module>``,
     ``grad_norm/total``). The step's phases are profiler spans:
     ``genvc.features``, ``genvc.forward``, ``genvc.backward``,
-    ``genvc.optimizer``.
+    ``genvc.optimizer`` (``tracing`` spans, with the step's count as their
+    request id).
 
     ``mesh``: each rank's batch is its rows of the global batch (the same
     rows on every rank of a model group) and its GPT the rank's shards. The
@@ -225,24 +225,25 @@ def make_train_step(text_ce_weight: float = 0.01, mel_ce_weight: float = 1.0,
 
 
     def train_step(state: GPTTrainState, batch: dict, frozen: FrozenModules):
-        with record_function("genvc.features"):
+        step = state.step
+        with tracing.span("genvc.features", step):
             feats = prepare_features(frozen, batch, content_dtype)
-        with record_function("genvc.forward"):
+        with tracing.span("genvc.forward", step):
             loss, metrics = _loss(state, feats)
         flat = state.params.flat
         flat.grad = None
-        with record_function("genvc.backward"):
+        with tracing.span("genvc.backward", step):
             loss.backward()
         grad = flat.grad
         flat.grad = None
         if data_group is not None:
-            with record_function("genvc.grad_all_reduce"):
+            with tracing.span("genvc.grad_all_reduce", step):
                 collectives.all_reduce(grad, data_group)
         metrics = collectives.all_reduce_values({k: v.detach() for k, v in metrics.items()},
                                                 data_group)
         if grad_norms:
             metrics.update(_grad_norms(state.params, grad, model_group))
-        with record_function("genvc.optimizer"):
+        with tracing.span("genvc.optimizer", step):
             state.opt.step(flat, grad)
         state.step += 1
         return state, metrics

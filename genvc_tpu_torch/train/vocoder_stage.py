@@ -24,9 +24,8 @@ import dataclasses
 
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
-from genvc_tpu_torch import checkpoint as ckpt_lib
+from genvc_tpu_torch import checkpoint as ckpt_lib, tracing
 from genvc_tpu_torch.config import VocoderConfig
 from genvc_tpu_torch.models import gpt as gpt_model, hifigan
 from genvc_tpu_torch.ops.conv import linear_interp_x4, reset_convs
@@ -117,10 +116,10 @@ def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=No
 
     def train_step(state: VocoderTrainState, batch: dict, frozen: FrozenModules,
                    gpt: gpt_model.GPT):
-        with record_function("genvc.vocoder_batch"):
+        with tracing.span("genvc.vocoder_batch"):
             latents, wav_gt = prepare_vocoder_batch(frozen, gpt, batch)
         discs = state.discriminators
-        with record_function("genvc.disc_step"):
+        with tracing.span("genvc.disc_step"):
             # 1) the discriminators, on a detached prediction
             with torch.no_grad():
                 y_hat = render(state.generator, latents)
@@ -129,7 +128,7 @@ def make_train_step(voc_cfg: VocoderConfig, scale_factor: int = 4, disc_dtype=No
                                         families=families))
             d_loss = disc_loss(outs)
             _step(state.disc_params, state.disc_opt, d_loss, data_group)
-        with record_function("genvc.gen_step"):
+        with tracing.span("genvc.gen_step"):
             # 2) the generator, against the updated discriminators (their
             # parameters are detached views: the gradient reaches y_hat only)
             y_hat = render(state.generator, latents, state.gen_params.tensors())

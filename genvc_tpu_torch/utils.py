@@ -5,10 +5,13 @@ profiler context for the CLI's ``--profile``."""
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
 import torch
+
+from genvc_tpu_torch import tracing
 
 
 def plot_feat(feat, path: str | None = None):
@@ -34,8 +37,10 @@ def profile_trace(log_dir: str | None):
     """A ``torch.profiler`` trace of the block (host activity, and the
     card's kernels when a CUDA device is present), written on every exit
     from the block to ``<log_dir>/trace.json`` in Chrome's trace format
-    (chrome://tracing, Perfetto or TensorBoard's profile plugin). A falsy
-    ``log_dir`` traces nothing."""
+    (chrome://tracing, Perfetto or TensorBoard's profile plugin). The
+    recorder (``tracing``) is enabled for the block, and what its counters
+    gained there goes to ``<log_dir>/counters.json``; it is left on if it was
+    on, and nothing it held is reset. A falsy ``log_dir`` traces nothing."""
     if not log_dir:
         yield
         return
@@ -44,6 +49,9 @@ def profile_trace(log_dir: str | None):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=acts)
+    was_on = tracing.enabled()
+    before = tracing.snapshot()["counters"]
+    tracing.enable()
     prof.start()
     try:
         yield
@@ -51,4 +59,10 @@ def profile_trace(log_dir: str | None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
+        if not was_on:
+            tracing.disable()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        after = tracing.snapshot()["counters"]
+        with open(os.path.join(log_dir, "counters.json"), "w") as f:
+            json.dump({k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}, f, indent=1, sort_keys=True)

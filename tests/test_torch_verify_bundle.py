@@ -46,7 +46,8 @@ def test_torch_verify_bundle_all_families(bundle_path, monkeypatch):
 
 def test_torch_infer_profile_writes_a_trace(bundle_path, tmp_path):
     """``--profile DIR``: the streaming conversion runs and leaves a Chrome
-    trace in DIR holding the pipeline's spans; a conversion that fails to
+    trace in DIR holding the pipeline's spans, the decode's halves among
+    them, and the recorder's counters; a conversion that fails to
     load its audio still writes the trace (every exit path)."""
     from genvc_tpu_torch import infer
 
@@ -67,6 +68,8 @@ def test_torch_infer_profile_writes_a_trace(bundle_path, tmp_path):
         trace = json.loads((prof / "trace.json").read_text())
         names = {ev.get("name") for ev in trace["traceEvents"]}
         assert "genvc.vocode" in names and (tmp_path / "o.wav").exists()
+        assert {"genvc.decode.enqueue", "genvc.decode.readback"} <= names
+        assert json.loads((prof / "counters.json").read_text())["engine.steps"] > 0
         missing = tmp_path / "prof2"
         assert infer.main(flags[:-4] + ["--src_wav", str(tmp_path / "none.wav"),
                                         "--ref_audio", ref, "--profile", str(missing)]) == 1
