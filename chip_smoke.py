@@ -25,7 +25,12 @@ JAX package's e4m3 rule at overflow (0x7F / 0xFF stored past 464, read as
 K5 + K6. The beam reorder (``engine.reorder_rows``, an ``index_select`` of
 the cache by parent beam) at the flagship cache of 4 beams, bf16 and e4m3:
 rows bit-equal to their parents', K1 on the reordered cache against its
-plain version, and its device time against its byte bound.
+plain version, and its device time against its byte bound. The LayerNorm
+kernel (``csrc/layer_norm.cu``, no TPU kernel) at the decode step's call (1
+x 1024 bf16, bf16 and f32 parameters) and at the training features' (24 x
+500 x 768 f32): within one bf16 ulp / 1e-5 of its plain version, one launch
+a call, timed beside the plain ops and ``F.layer_norm`` with each one's host
+microseconds a call.
 
 Phase 2 first checks the host audio loader: the native library
 (``native/audioio.cpp``) builds, ``load_audio`` takes it on the sample wavs
@@ -49,7 +54,9 @@ the same tokens; two GPT training steps (K4 / K5 / K6 on the card) must
 give the same codes, losses, gradient norms and parameters. The port's CLI
 then streams one utterance with ``--bf16 --profile DIR`` on a small bundle
 of 64 mel tokens, whose last window steps past the cap (fault C.7): the
-trace must hold K1's two CUDA kernels.
+trace must hold K1's two CUDA kernels, and its ``counters.json`` the
+LayerNorm kernel's launches (``ops.layer_norm.kernel``, 62 a decode step at
+least).
 
 Phase 3 drives every ported path through its entry points at flagship width
 (GPT 30 layers x 1024, 4 heads, bf16; ContentVec 12 layers; content dVAE
@@ -66,8 +73,9 @@ each once to warm up and once timed. It checks the audio and that the
 kernels of each path were launched as often as the path says: K1 30 times
 per lockstep decode step (a search's forward at B = beams or candidates),
 K4 30 times per latent pass, K3 30 times per per-row decode step of the
-server (and the others not at all there). Phase 6d runs there, on that
-pipeline.
+server (and the others not at all there), and in streaming the LayerNorm
+kernel 62 times a decode step at least.
+Phase 6d runs there, on that pipeline.
 
 Phase 3b builds the quantized serving configuration at flagship width (bf16
 GPT, ``quantize="int8"``, ``kv_cache_dtype="fp8"``) from the same weights:
@@ -911,6 +919,92 @@ def check_int8_linear(quant, gpu):
     print("int8_product " + json.dumps(rec), flush=True)
 
 
+def host_us(fn, calls=2000, warmup=50):
+    """Host microseconds a call of ``fn`` takes to return (its Python and its
+    launches), over ``calls`` calls with no synchronise between them; the
+    device runs behind the host for calls that cost it less."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def check_layer_norm(tnn, gpu):
+    """The LayerNorm kernel (``csrc/layer_norm.cu``, no TPU kernel: LayerNorm
+    is plain jnp that XLA fuses) against its plain version, at the decode
+    step's call (1 x 1024 bf16, bf16 parameters; f32 ``final_norm``
+    parameters) and at the training features' ContentVec call (24 x 500 rows
+    of 768 f32): bf16 within one bf16 ulp of the plain version, f32 within
+    1e-5; one launch a call (``layer_norm.launches``). Times
+    kernel, plain version and ``F.layer_norm`` (the library yardstick, which
+    the port never calls): ms, device ms, the byte bound, and each one's host
+    microseconds a call."""
+    import torch.nn.functional as F
+
+    cases = [("decode", 1, 1024, torch.bfloat16, torch.bfloat16),
+             ("decode_f32_params", 1, 1024, torch.bfloat16, torch.float32),
+             ("features", 24 * 500, 768, torch.float32, torch.float32)]
+    recs = {}
+    for name, rows, d, xdt, pdt in cases:
+        g = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = (torch.randn(rows, d, generator=g, device="cuda") * 3 + 0.5).to(xdt)
+        scale = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(pdt)
+        bias = (0.1 * torch.randn(d, generator=g, device="cuda")).to(pdt)
+        before = tnn.layer_norm.launches
+        got = tnn.layer_norm(x, scale, bias).float()
+        torch.cuda.synchronize()
+        calls = tnn.layer_norm.launches - before
+        want = tnn.layer_norm_plain(x, scale, bias).float()
+        err = (got - want).abs()
+        if xdt == torch.bfloat16:  # one bf16 ulp, plus the f32 sums' order where
+            # the output's terms cancel (tests/test_torch_layer_norm.py)
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            nrm = (xf - mean) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + 1e-5)
+            slack = 2.0 ** -20 * ((nrm * scale.float()).abs() + bias.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+            ok = bool((err <= ulp + slack).all())
+        else:
+            ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+        if calls != 1 or not ok:
+            raise AssertionError(f"layer_norm {name}: {calls} kernel calls, max |err| "
+                                 f"{float(err.max())}")
+
+        def kernel():
+            return tnn.layer_norm(x, scale, bias)
+
+        def plain():
+            return tnn.layer_norm_plain(x, scale, bias)
+
+        def library():
+            return F.layer_norm(x, (d,), scale.to(xdt), bias.to(xdt), 1e-5)
+
+        n_bytes = 2 * rows * d * x.element_size() + 2 * d * scale.element_size()
+        rec = {"rows": rows, "d": d, "x": str(xdt).replace("torch.", ""),
+               "params": str(pdt).replace("torch.", ""), "max_abs_err": float(err.max()),
+               "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        for label, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+            dev, per_call = device_ms(fn)
+            rec[label] = {"ms": time_ms(fn), "device_ms": dev, "cuda_launches": per_call,
+                          "host_us": host_us(fn)}
+        rec["device_ratio_vs_library"] = ratio(rec["kernel"]["device_ms"],
+                                               rec["library"]["device_ms"])
+        recs[name] = rec
+    # the stream handle's host cost, the wrapper's way and the public way
+    dev_idx = torch.cuda.current_device()
+    recs["stream_handle_host_us"] = {
+        "raw": host_us(lambda: torch._C._cuda_getCurrentRawStream(dev_idx)),
+        "current_stream": host_us(lambda: torch.cuda.current_stream(
+            torch.device("cuda", dev_idx)).cuda_stream)}
+    recs["gpu"] = gpu
+    print("layer_norm " + json.dumps(recs), flush=True)
+
+
 def small_config(pipeline):
     cfg = pipeline.flagship_config()
     ma = cfg.model_args
@@ -1035,10 +1129,19 @@ def check_cli_profile(pipeline, da, fa, tmp, gpu):
     expect_none("cli --profile", n, ("k3", "k4", "k5", "k6"))
     if not n.k1 or set(kernels) != {"decode_split_logits", "decode_split_pv"}:
         raise AssertionError(f"trace kernels {kernels}, K1 launched {n.k1} times")
+    # the recorder's counters: every LayerNorm of the bf16 call on the kernel
+    with open(os.path.join(prof, "counters.json")) as f:
+        counters = json.load(f)
+    steps = counters.get("engine.steps", 0)
+    ln_kernel = counters.get("ops.layer_norm.kernel", 0)
+    per_step = 2 * cfg.model_args.gpt_layers + 2
+    if not steps or ln_kernel < per_step * steps:
+        raise AssertionError(f"cli --profile counters {counters}")
     print("cli profile " + json.dumps({
         "trace_mb": os.path.getsize(trace_path) / 2 ** 20, "events": len(events),
         "k1_launches": n.k1, "k1_kernels_in_trace": kernels, "wall_s": wall,
-        "gpu": gpu}), flush=True)
+        "counters": counters, "layer_norm_per_decode_step": per_step, "gpu": gpu}),
+        flush=True)
     return n.counts()
 
 
@@ -1187,11 +1290,13 @@ class Launches:
     before it, read just after."""
 
     def __init__(self, da, fa):
+        from genvc_tpu_torch.ops import nn as tnn
         from genvc_tpu_torch.ops import quant
 
-        self.da, self.fa, self.quant = da, fa, quant
+        self.da, self.fa, self.quant, self.tnn = da, fa, quant, tnn
 
     def __enter__(self):
+        self.tnn.layer_norm.launches = 0
         self.quant.int8_matmul.launches = 0
         self.da.decode_attention_layer.launches = 0
         self.da.decode_attention_update_layer.launches = 0
@@ -1207,12 +1312,14 @@ class Launches:
         self.k5 = self.fa.flash_attention_dq.launches
         self.k6 = self.fa.flash_attention_dkdv.launches
         self.q8 = self.quant.int8_matmul.launches
+        self.ln = self.tnn.layer_norm.launches
         return False
 
     def counts(self):
         return {"decode_attention_layer": self.k1, "decode_attention_update_layer": self.k3,
                 "flash_attention": self.k4, "flash_attention_dq": self.k5,
-                "flash_attention_dkdv": self.k6, "int8_matmul": self.q8}
+                "flash_attention_dkdv": self.k6, "int8_matmul": self.q8,
+                "layer_norm": self.ln}
 
 
 def expect(name, got, want):
@@ -2620,6 +2727,7 @@ def main() -> int:
     from genvc_tpu_torch.ops import decode_attention as da
     from genvc_tpu_torch.models import gpt as gpt_model
     from genvc_tpu_torch.ops import flash_attention as fa
+    from genvc_tpu_torch.ops import nn as tnn
     from genvc_tpu_torch.ops import quant
     from genvc_tpu_torch.serving.server import StreamServer
 
@@ -2636,7 +2744,7 @@ def main() -> int:
 
     # ---- phase 1: build and check every kernel
     t0 = time.perf_counter()
-    kernels = ["decode_attention", "flash_attention", "flash_attention_bwd"]
+    kernels = ["decode_attention", "flash_attention", "flash_attention_bwd", "layer_norm"]
     logs = _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
@@ -2655,6 +2763,7 @@ def main() -> int:
     check_fp8_overflow(da)
     k4, k4_train, k4_tp = check_flash_attention(fa)
     k56, k56_328, k56_tp = check_flash_backward(fa)
+    check_layer_norm(tnn, gpu)
     mark("phase 1")
 
     # ---- phase 2: a small f32 configuration, card vs CPU
@@ -2695,6 +2804,13 @@ def main() -> int:
         check_audio("streaming", wav, pipe.sample_rate)
         expect("streaming K1", n.k1, layers * steps)
         expect_none("streaming", n, ("k3", "k4", "k5", "k6"))
+        # the LayerNorm kernel: 2 a block + ln_f + final_norm each decode
+        # step, the rest in prefills and ContentVec
+        if n.ln < (2 * layers + 2) * steps:
+            raise AssertionError(f"streaming LayerNorm: {n.ln} launches over {steps} "
+                                 "decode steps")
+        print(f"streaming run {run}: LayerNorm launches {n.ln} "
+              f"({(2 * layers + 2) * steps} in the decode steps)", flush=True)
         lat.append(latency * 1e3)
         rtf.append(r)
         print(f"streaming run {run}: {wav.size} samples, first-chunk latency "
