@@ -30,7 +30,13 @@ kernel (``csrc/layer_norm.cu``, no TPU kernel) at the decode step's call (1
 x 1024 bf16, bf16 and f32 parameters) and at the training features' (24 x
 500 x 768 f32): within one bf16 ulp / 1e-5 of its plain version, one launch
 a call, timed beside the plain ops and ``F.layer_norm`` with each one's host
-microseconds a call.
+microseconds a call. The DeepSeek-V3 backbone's kernels (no TPU kernels) at
+Moonlight-16B-A3B's widths: the RMS mode of ``csrc/layer_norm.cu`` at 8 x
+2048 and at 920 x 512 with rows 576 apart, ``mla_decode`` (absorbed latent
+attention, ``csrc/mla_decode.cu``) at 8 rows x 384 positions, 16 heads, 512
++ 64, and ``moe_experts`` (``csrc/moe_experts.cu``) at 8 and 920 rows x 6 of
+64 experts: each against its plain version, one counted call, and timed
+beside it and a library yardstick (``F.rms_norm``, SDPA, ``torch._grouped_mm``).
 
 Phase 2 first checks the host audio loader: the native library
 (``native/audioio.cpp``) builds, ``load_audio`` takes it on the sample wavs
@@ -1003,6 +1009,176 @@ def check_layer_norm(tnn, gpu):
             torch.device("cuda", dev_idx)).cuda_stream)}
     recs["gpu"] = gpu
     print("layer_norm " + json.dumps(recs), flush=True)
+
+
+# Moonlight-16B-A3B's published widths (the DeepSeek-V3 backbone): hidden,
+# heads, latent rank, rotary width, nope width, experts, chosen a token,
+# expert width, layers
+MOONLIGHT = dict(D=2048, H=16, R=512, P=64, NOPE=128, E=64, K=6, F=1408, L=27)
+
+
+def yardsticks(fns, iters=200, host_calls=2000):
+    """Each of ``fns`` {label: fn} timed: ms (CUDA events over ``iters``
+    calls), device ms and CUDA launches a call (profiler) and, where
+    ``host_calls``, host microseconds a call. The library yardstick is not
+    part of the port: where its call fails, the error is recorded instead."""
+    out = {}
+    for label, fn in fns.items():
+        try:
+            dev, per_call = device_ms(fn, iters=min(50, iters))
+            out[label] = {"ms": time_ms(fn, iters=iters, warmup=min(10, iters)),
+                          "device_ms": dev, "cuda_launches": per_call}
+            if host_calls:
+                out[label]["host_us"] = host_us(fn, calls=host_calls, warmup=min(50, host_calls))
+        except RuntimeError as e:
+            if label != "library":
+                raise
+            out[label] = {"error": str(e)[:300]}
+    return out
+
+
+def check_mla_decode(mla, gpu):
+    """``mla_decode`` (``csrc/mla_decode.cu``, no TPU kernel: the JAX package
+    has no latent attention) at the lockstep step's call of the DeepSeek-V3
+    backbone: 8 rows, a latent cache of 27 layers x 384 positions (200
+    valid, the rest masked) of 512 + 64, 16 heads, bf16, the last layer.
+    Against its plain version within 2^-7 relative plus 2e-3 (two bf16 ulps:
+    f32 sums in another order), one count a call (two CUDA launches). Times
+    kernel, plain version and SDPA over the rows expanded to 16 heads (the
+    library yardstick): ms, device ms, the byte bound (the valid rows, the
+    queries and the outputs at 3.35 TB/s) and host microseconds a call."""
+    import torch.nn.functional as F
+
+    m = MOONLIGHT
+    b, t, valid_t, h, r, p = 8, 384, 200, m["H"], m["R"], m["P"]
+    g = torch.Generator(device="cuda").manual_seed(18)
+    cache = torch.randn(m["L"], b, t, r + p, generator=g, device="cuda").to(torch.bfloat16)
+    q = (torch.randn(b, h, r + p, generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    bias = torch.where(torch.arange(t, device="cuda") < valid_t, 0.0, -1e9).expand(b, t)
+    bias = bias.contiguous()
+    scale = (m["NOPE"] + p) ** -0.5
+    layer = m["L"] - 1
+    before = mla.mla_decode.launches
+    got = mla.mla_decode(q, cache, bias, layer, r, scale).float()
+    torch.cuda.synchronize()
+    calls = mla.mla_decode.launches - before
+    want = mla.mla_decode_plain(q, cache, bias, layer, r, scale).float()
+    err = (got - want).abs()
+    if calls != 1 or not bool((err <= 2e-3 + 2 ** -7 * want.abs()).all()):
+        raise AssertionError(f"mla_decode: {calls} counted calls, max |err| {float(err.max())}")
+    rows = cache[layer][:, None]                                    # (B, 1, T, R + P)
+    keys, values = rows.expand(b, h, t, r + p), rows[..., :r].expand(b, h, t, r)
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    n_bytes = (b * valid_t * (r + p) + b * h * (r + p) + b * h * r) * 2
+    rec = {"B": b, "T": t, "valid": valid_t, "H": h, "R": r, "P": p,
+           "max_abs_err": float(err.max()), "bytes": n_bytes,
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "gpu": gpu}
+    rec |= yardsticks({
+        "kernel": lambda: mla.mla_decode(q, cache, bias, layer, r, scale),
+        "plain": lambda: mla.mla_decode_plain(q, cache, bias, layer, r, scale),
+        "library": lambda: F.scaled_dot_product_attention(q[:, :, None], keys, values,
+                                                          attn_mask=mask, scale=scale)})
+    rec["device_ratio_vs_library"] = ratio(rec["kernel"]["device_ms"],
+                                           rec["library"].get("device_ms"))
+    print("mla_decode " + json.dumps(rec), flush=True)
+
+
+def check_moe_experts(moe, gpu):
+    """``moe_experts`` (``csrc/moe_experts.cu``, no TPU kernel: the JAX
+    package has no experts) at the backbone's widths (64 experts of 2048 ->
+    2 x 1408 -> 2048, bf16, 6 chosen a row) at the lockstep step's 8 rows and
+    at a prefill's 920 rows. Against its plain version within 2^-7 absolute
+    plus 2^-6 relative (one rounded intermediate a bf16 ulp apart, times a
+    weight under 1), one count a call (three CUDA launches). Times kernel,
+    plain version (a host loop over the chosen experts) and
+    ``torch._grouped_mm`` over the rows sorted by expert (the library
+    yardstick, without the weighted combine): ms, device ms, the bound (the
+    chosen experts' weights, the rows in and out at 3.35 TB/s, or the
+    products at the bf16 peak) and, at 8 rows, host microseconds a call."""
+    import torch.nn.functional as F
+
+    m = MOONLIGHT
+    d, f, n_exp, k = m["D"], m["F"], m["E"], m["K"]
+    g = torch.Generator(device="cuda").manual_seed(1408)
+    w1 = (torch.randn(n_exp, 2 * f, d, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    w2 = (torch.randn(n_exp, d, f, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    recs = {"gpu": gpu}
+    for name, rows, iters, host_calls in (("decode", 8, 200, 200), ("prefill", 920, 10, 0)):
+        x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+        idx = torch.argsort(torch.rand(rows, n_exp, generator=g, device="cuda"), dim=-1)[:, :k]
+        w = torch.rand(rows, k, generator=g, device="cuda")
+        w = w / w.sum(-1, keepdim=True)
+        before = moe.moe_experts.launches
+        got = moe.moe_experts(x, idx, w, w1, w2).float()
+        torch.cuda.synchronize()
+        calls = moe.moe_experts.launches - before
+        want = moe.moe_experts_plain(x, idx, w, w1, w2).float()
+        err = (got - want).abs()
+        if calls != 1 or not bool((err <= 2 ** -7 + 2 ** -6 * want.abs()).all()):
+            raise AssertionError(f"moe_experts {name}: {calls} counted calls, max |err| "
+                                 f"{float(err.max())}")
+        chosen = int(idx.unique().numel())
+        n_bytes = chosen * 3 * d * f * 2 + 2 * rows * d * 2 + rows * k * 8
+        flops = 2 * rows * k * 3 * d * f
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat)
+        offs = torch.cumsum(torch.bincount(flat, minlength=n_exp), 0).to(torch.int32)
+        src_rows = order // k
+
+        def library():
+            gu = torch._grouped_mm(x[src_rows], w1.transpose(1, 2), offs=offs)
+            gate, up = gu.chunk(2, dim=-1)
+            return torch._grouped_mm(F.silu(gate) * up, w2.transpose(1, 2), offs=offs)
+
+        rec = {"rows": rows, "chosen": chosen, "max_abs_err": float(err.max()),
+               "bytes": n_bytes, "flops": flops,
+               "bound_ms": max(n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+               "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+               else "flops"}
+        rec |= yardsticks({"kernel": lambda: moe.moe_experts(x, idx, w, w1, w2),
+                           "plain": lambda: moe.moe_experts_plain(x, idx, w, w1, w2),
+                           "library": library}, iters=iters, host_calls=host_calls)
+        rec["device_ratio_vs_library"] = ratio(rec["kernel"]["device_ms"],
+                                               rec["library"].get("device_ms"))
+        recs[name] = rec
+    print("moe_experts " + json.dumps(recs), flush=True)
+
+
+def check_rms_norm(tnn, gpu):
+    """The RMS mode of ``csrc/layer_norm.cu`` (``ops.nn.rms_norm``) at the
+    backbone's calls: the lockstep step's 8 rows of 2048 and a prefill's 920
+    rows of the latent (512 of each 576-wide row of the projection, read in
+    place). Against its plain version within one bf16 ulp (2^-7 relative,
+    the sum of squares in another order), one launch a call, a contiguous
+    result. Times kernel, plain version and ``F.rms_norm`` (the library
+    yardstick): ms, device ms, the byte bound and host microseconds a call."""
+    import torch.nn.functional as F
+
+    recs = {"gpu": gpu}
+    for name, rows, d, ld in (("decode", 8, 2048, 2048), ("latent_prefill", 920, 512, 576)):
+        g = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = (torch.randn(rows, ld, generator=g, device="cuda") * 3).to(torch.bfloat16)[:, :d]
+        scale = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(torch.bfloat16)
+        before = tnn.rms_norm.launches
+        got = tnn.rms_norm(x, scale)
+        torch.cuda.synchronize()
+        calls = tnn.rms_norm.launches - before
+        want = tnn.rms_norm_plain(x, scale).float()
+        err = (got.float() - want).abs()
+        if calls != 1 or not got.is_contiguous() or not bool(
+                (err <= 1e-6 + 2 ** -7 * want.abs()).all()):
+            raise AssertionError(f"rms_norm {name}: {calls} launches, max |err| "
+                                 f"{float(err.max())}")
+        n_bytes = 2 * rows * d * 2 + d * 2
+        rec = {"rows": rows, "d": d, "row_stride": ld, "max_abs_err": float(err.max()),
+               "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        rec |= yardsticks({"kernel": lambda: tnn.rms_norm(x, scale),
+                           "plain": lambda: tnn.rms_norm_plain(x, scale),
+                           "library": lambda: F.rms_norm(x, (d,), scale, 1e-5)})
+        rec["device_ratio_vs_library"] = ratio(rec["kernel"]["device_ms"],
+                                               rec["library"].get("device_ms"))
+        recs[name] = rec
+    print("rms_norm " + json.dumps(recs), flush=True)
 
 
 def small_config(pipeline):
@@ -2727,6 +2903,7 @@ def main() -> int:
     from genvc_tpu_torch.ops import decode_attention as da
     from genvc_tpu_torch.models import gpt as gpt_model
     from genvc_tpu_torch.ops import flash_attention as fa
+    from genvc_tpu_torch.ops import mla, moe
     from genvc_tpu_torch.ops import nn as tnn
     from genvc_tpu_torch.ops import quant
     from genvc_tpu_torch.serving.server import StreamServer
@@ -2744,7 +2921,8 @@ def main() -> int:
 
     # ---- phase 1: build and check every kernel
     t0 = time.perf_counter()
-    kernels = ["decode_attention", "flash_attention", "flash_attention_bwd", "layer_norm"]
+    kernels = ["decode_attention", "flash_attention", "flash_attention_bwd", "layer_norm",
+               "mla_decode", "moe_experts"]
     logs = _build.build_all(kernels)
     print(f"built {kernels} in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
@@ -2764,6 +2942,9 @@ def main() -> int:
     k4, k4_train, k4_tp = check_flash_attention(fa)
     k56, k56_328, k56_tp = check_flash_backward(fa)
     check_layer_norm(tnn, gpu)
+    check_rms_norm(tnn, gpu)
+    check_mla_decode(mla, gpu)
+    check_moe_experts(moe, gpu)
     mark("phase 1")
 
     # ---- phase 2: a small f32 configuration, card vs CPU

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from genvc_tpu_torch.config import GenVCConfig
-from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan
+from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan, mla_moe
 from genvc_tpu_torch.ops import quant
 
 
@@ -635,7 +635,9 @@ class Modules:
     contentvec: contentvec.ContentVec
 
 
-def gpt_config(cfg: GenVCConfig) -> gpt_model.GPTConfig:
+def gpt_config(cfg: GenVCConfig, backbone=None) -> gpt_model.GPTConfig:
+    """The GPT's configuration; ``backbone`` (a ``config.MLAMoEConfig``)
+    puts DeepSeek-V3 blocks in place of GPT-2's."""
     ma = cfg.model_args
     return gpt_model.GPTConfig(
         layers=ma.gpt_layers, model_dim=ma.gpt_n_model_channels,
@@ -647,7 +649,7 @@ def gpt_config(cfg: GenVCConfig) -> gpt_model.GPTConfig:
         stop_text_token=ma.gpt_stop_text_token or 257,
         start_audio_token=ma.gpt_start_audio_token,
         stop_audio_token=ma.gpt_stop_audio_token,
-        code_stride_len=ma.gpt_code_stride_len)
+        code_stride_len=ma.gpt_code_stride_len, mla_moe=backbone)
 
 
 def dvae_config(vc) -> dvae.DVAEConfig:
@@ -665,10 +667,12 @@ def _take(node, i):
     return node[i]
 
 
-def assign(module: nn.Module, tree: dict, device, path: str = "") -> None:
-    """Load ``tree`` into ``module``'s parameters and buffers (as f32 on
-    ``device``). The tree's keys must equal the module's parameter, buffer
-    and child names exactly."""
+def assign(module: nn.Module, tree: dict, device, path: str = "",
+           dtype=torch.float32) -> None:
+    """Load ``tree`` into ``module``'s parameters and buffers (as ``dtype``,
+    f32 by default, on ``device``; a leaf already of that type and device is
+    taken without a copy). The tree's keys must equal the module's
+    parameter, buffer and child names exactly."""
     buffers = {n for n, _ in module.named_buffers(recurse=False)}
     expected = ({n for n, _ in module.named_parameters(recurse=False)} | buffers
                 | {n for n, _ in module.named_children()})
@@ -685,15 +689,15 @@ def assign(module: nn.Module, tree: dict, device, path: str = "") -> None:
                 raise ValueError(f"{where}: {len(items)} entries for "
                                  f"{len(child)} modules")
             for i, (m, v) in enumerate(zip(child, items)):
-                assign(m, v, device, f"{where}.{i}")
+                assign(m, v, device, f"{where}.{i}", dtype)
         elif isinstance(child, nn.Module):
-            assign(child, val, device, where)
+            assign(child, val, device, where, dtype)
         else:
             t = torch.as_tensor(np.asarray(val) if not torch.is_tensor(val) else val)
             if tuple(t.shape) != tuple(child.shape):
                 raise ValueError(f"{where}: shape {tuple(t.shape)} != "
                                  f"{tuple(child.shape)}")
-            t = t.to(device=device, dtype=torch.float32)
+            t = t.to(device=device, dtype=dtype)
             setattr(module, key, t if key in buffers else nn.Parameter(t, requires_grad=False))
 
 
@@ -721,7 +725,7 @@ def export_tree(module: nn.Module) -> dict:
 
 
 def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",
-                  dtype=torch.float32, quantize: str | None = None) -> Modules:
+                  dtype=torch.float32, quantize: str | None = None, backbone=None) -> Modules:
     """Build the port's modules from a parameter tree in the JAX package's
     layout (``genvc_tpu.checkpoint.convert_bundle`` output, this module's own
     :func:`convert_bundle` or :func:`load_pytree_npz`, or the ``init_tree``
@@ -732,16 +736,23 @@ def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",
     dVAE stay f32 — the JAX ``build_pipeline``'s choice. ``quantize="int8"``
     then swaps int8 linears (``ops.quant``) in for the GPT's block
     projections and heads, quantized from the tree's f32 weights, and keeps
-    the core's LayerNorms in f32, as ``build_pipeline`` does."""
+    the core's LayerNorms in f32, as ``build_pipeline`` does.
+
+    The GPT's leaves are loaded in ``dtype`` directly (a bf16 tree on the
+    device is taken without a copy: the DeepSeek-V3 backbone, ``backbone``
+    a ``config.MLAMoEConfig``, is 30 GB in bf16 and would not fit as f32).
+    That backbone keeps its routers in f32 and has no int8 mode."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}; supported: 'int8'")
+    if quantize is not None and backbone is not None:
+        raise mla_moe.unsupported("int8 quantization")
     with torch.device("meta"):
         mods = Modules(
-            gpt=gpt_model.GPT(gpt_config(cfg)),
+            gpt=gpt_model.GPT(gpt_config(cfg, backbone)),
             hifigan=hifigan.Generator(cfg.vocoder_config),
             content_dvae=dvae.DVAE(dvae_config(cfg.content_dvae_config)),
             contentvec=contentvec.ContentVec(n_layers=_n_layers(tree["contentvec"])))
-    assign(mods.gpt, tree["gpt"], device, "gpt")
+    assign(mods.gpt, tree["gpt"], device, "gpt", dtype)
     assign(mods.hifigan, tree["hifigan"], device, "hifigan")
     cd = tree["content_dvae"]
     assign(mods.content_dvae, {"encoder": cd["encoder"],
@@ -752,6 +763,10 @@ def load_jax_tree(tree: dict, cfg: GenVCConfig, device="cuda",
         mods.gpt.to(dtype)
         assign(mods.gpt.final_norm, tree["gpt"]["final_norm"], device,
                "gpt.final_norm")
+        for i, block in enumerate(mods.gpt.core.blocks):
+            if hasattr(block, "moe"):
+                assign(block.moe.router, tree["gpt"]["core"]["blocks"][i]["moe"]["router"],
+                       device, f"gpt.core.blocks.{i}.moe.router")
     if quantize is not None:  # from the f32 tree, not the casts
         quant.quantize_gpt(mods.gpt, tree["gpt"])
     for m in (mods.gpt, mods.hifigan, mods.content_dvae, mods.contentvec):

@@ -312,6 +312,36 @@ class GenVCConfig(_ConfigBase):
     contentvec_model_path: str = "pretrained_models/contentVec.pth"
 
 
+@dataclass(frozen=True)
+class MLAMoEConfig(_ConfigBase):
+    """The DeepSeek-V3 decoder backbone (latent attention, a mixture of
+    experts; ``models/mla_moe.py``) in place of GenVC's GPT-2 blocks, its
+    fields named as in a DeepSeek-V3 ``config.json`` (defaults:
+    Moonlight-16B-A3B's). GenVC's GPT-2 blocks are the default: a pipeline
+    is handed one of these (``build_pipeline(..., backbone=)``) to run this
+    one. ``n_group`` = ``topk_group`` = 1 (a plain top-k) is the only
+    grouping built."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
 # Mapping used by _build to know which nested dict fields become dataclasses.
 _DATACLASS_FIELDS = {
     ("VAEConfig", "audio"): AudioConfig,

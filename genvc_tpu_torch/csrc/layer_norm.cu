@@ -35,6 +35,14 @@
 // scale and bias are read a vector at a time where both are, else one
 // element at a time (weights held as views of one buffer start at any
 // element).
+//
+// RMS mode (genvc_rms_norm; added for the DeepSeek-V3 backbone's RMSNorm,
+// which the JAX package does not have): y = x * rsqrt(mean(x^2) + eps) *
+// scale, with no mean and no bias, in the same f32 rounding order as
+// ops/nn.py `rms_norm_plain` (sum of squares, * (1/d), + eps, rsqrt; then
+// x * rstd, * scale). Rows of x may lie `ld` elements apart (a slice of a
+// wider projection, such as the latent part of MLA's kv_a output); y is
+// written contiguous. Bound and design as above: bytes, one warp a row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -122,17 +130,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename XT, typename PT, int NV>
+template <typename XT, typename PT, int NV, bool RMS>
 __global__ void __launch_bounds__(kWarps * 32)
 layer_norm_rows(const XT* __restrict__ x, const PT* __restrict__ scale,
                 const PT* __restrict__ bias, XT* __restrict__ y, float* __restrict__ mean_out,
-                float* __restrict__ rstd_out, long long rows, int d, float eps,
+                float* __restrict__ rstd_out, long long rows, int d, long long ld, float eps,
                 bool param_vec) {
   constexpr int V = 16 / sizeof(XT);  // elements a vector
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
-  const XT* xr = x + row * d;
+  const XT* xr = x + row * ld;
   XT* yr = y + row * d;
   const float inv_d = 1.0f / (float)d;
 
@@ -144,8 +152,24 @@ layer_norm_rows(const XT* __restrict__ x, const PT* __restrict__ scale,
     if (c < d) {
       load_x(xr + c, v[i]);
 #pragma unroll
-      for (int j = 0; j < V; ++j) sum += v[i][j];
+      for (int j = 0; j < V; ++j) sum += RMS ? v[i][j] * v[i][j] : v[i][j];
     }
+  }
+  if constexpr (RMS) {
+    const float rstd = rsqrtf(__fadd_rn(warp_sum(sum) * inv_d, eps));
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (i * 32 + lane) * V;
+      if (c < d) {
+        float s[V], o[V];
+        if (param_vec) load_param<V>(scale + c, s);
+        else load_param_elems<V>(scale + c, s);
+#pragma unroll
+        for (int j = 0; j < V; ++j) o[j] = __fmul_rn(__fmul_rn(v[i][j], rstd), s[j]);
+        store_y(yr + c, o);
+      }
+    }
+    return;
   }
   const float mean = warp_sum(sum) * inv_d;
 
@@ -186,33 +210,62 @@ layer_norm_rows(const XT* __restrict__ x, const PT* __restrict__ scale,
   }
 }
 
-template <typename XT, typename PT, int NV>
+template <typename XT, typename PT, int NV, bool RMS>
 cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
-                   float* mean, float* rstd, long long rows, int d, float eps,
+                   float* mean, float* rstd, long long rows, int d, long long ld, float eps,
                    bool param_vec, cudaStream_t stream) {
   const long long blocks = (rows + kWarps - 1) / kWarps;
-  layer_norm_rows<XT, PT, NV><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+  layer_norm_rows<XT, PT, NV, RMS><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const PT*>(scale),
-      static_cast<const PT*>(bias), static_cast<XT*>(y), mean, rstd, rows, d, eps,
+      static_cast<const PT*>(bias), static_cast<XT*>(y), mean, rstd, rows, d, ld, eps,
       param_vec);
   return cudaGetLastError();
 }
 
 // the smallest instantiated NV that holds `vecs` vectors a lane
-template <typename XT, typename PT>
+template <typename XT, typename PT, bool RMS>
 cudaError_t launch_width(int vecs, const void* x, const void* scale, const void* bias,
                          void* y, float* mean, float* rstd, long long rows, int d,
-                         float eps, bool pv, cudaStream_t s) {
+                         long long ld, float eps, bool pv, cudaStream_t s) {
   switch (vecs) {
-    case 1: return launch<XT, PT, 1>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
-    case 2: return launch<XT, PT, 2>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
-    case 3: return launch<XT, PT, 3>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
-    case 4: return launch<XT, PT, 4>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
+    case 1: return launch<XT, PT, 1, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps, pv, s);
+    case 2: return launch<XT, PT, 2, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps, pv, s);
+    case 3: return launch<XT, PT, 3, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps, pv, s);
+    case 4: return launch<XT, PT, 4, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps, pv, s);
     case 5:
-    case 6: return launch<XT, PT, 6>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
+    case 6: return launch<XT, PT, 6, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps, pv, s);
     default:
-      return launch<XT, PT, kMaxVecs>(x, scale, bias, y, mean, rstd, rows, d, eps, pv, s);
+      return launch<XT, PT, kMaxVecs, RMS>(x, scale, bias, y, mean, rstd, rows, d, ld, eps,
+                                           pv, s);
   }
+}
+
+template <bool RMS>
+int dispatch(const void* x, const void* scale, const void* bias, void* y, float* mean,
+             float* rstd, long long rows, int d, long long ld, int x_bf16, int param_bf16,
+             float eps, void* stream) {
+  const int vec = x_bf16 ? 8 : 4;
+  const int vecs = d > 0 ? (d / vec + 31) / 32 : 0;
+  const bool pv = !(((uintptr_t)scale | (uintptr_t)bias) & 15);
+  if (rows < 0 || d <= 0 || d % vec || vecs > kMaxVecs || ld < d || ld % vec ||
+      (((uintptr_t)x | (uintptr_t)y) & 15) ||
+      ((mean == nullptr) != (rstd == nullptr)) ||
+      (rows + kWarps - 1) / kWarps > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    return (int)(param_bf16
+        ? launch_width<__nv_bfloat16, __nv_bfloat16, RMS>(vecs, x, scale, bias, y, mean, rstd,
+                                                          rows, d, ld, eps, pv, s)
+        : launch_width<__nv_bfloat16, float, RMS>(vecs, x, scale, bias, y, mean, rstd, rows,
+                                                  d, ld, eps, pv, s));
+  }
+  return (int)(param_bf16
+      ? launch_width<float, __nv_bfloat16, RMS>(vecs, x, scale, bias, y, mean, rstd, rows, d,
+                                                ld, eps, pv, s)
+      : launch_width<float, float, RMS>(vecs, x, scale, bias, y, mean, rstd, rows, d, ld, eps,
+                                        pv, s));
 }
 
 }  // namespace
@@ -226,25 +279,16 @@ cudaError_t launch_width(int vecs, const void* x, const void* scale, const void*
 extern "C" int genvc_layer_norm(const void* x, const void* scale, const void* bias,
                                 void* y, float* mean, float* rstd, long long rows, int d,
                                 int x_bf16, int param_bf16, float eps, void* stream) {
-  const int vec = x_bf16 ? 8 : 4;
-  const int vecs = d > 0 ? (d / vec + 31) / 32 : 0;
-  const bool pv = !(((uintptr_t)scale | (uintptr_t)bias) & 15);
-  if (rows < 0 || d <= 0 || d % vec || vecs > kMaxVecs ||
-      (((uintptr_t)x | (uintptr_t)y) & 15) ||
-      ((mean == nullptr) != (rstd == nullptr)) ||
-      (rows + kWarps - 1) / kWarps > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return (int)(param_bf16
-        ? launch_width<__nv_bfloat16, __nv_bfloat16>(vecs, x, scale, bias, y, mean, rstd,
-                                                     rows, d, eps, pv, s)
-        : launch_width<__nv_bfloat16, float>(vecs, x, scale, bias, y, mean, rstd, rows, d,
-                                             eps, pv, s));
-  }
-  return (int)(param_bf16
-      ? launch_width<float, __nv_bfloat16>(vecs, x, scale, bias, y, mean, rstd, rows, d,
-                                           eps, pv, s)
-      : launch_width<float, float>(vecs, x, scale, bias, y, mean, rstd, rows, d, eps, pv, s));
+  return dispatch<false>(x, scale, bias, y, mean, rstd, rows, d, d, x_bf16, param_bf16, eps,
+                         stream);
+}
+
+// y = RMSNorm(x) * scale over rows of d elements, the rows of x `ld` elements
+// apart (ld >= d, a multiple of the vector), y contiguous; otherwise as
+// genvc_layer_norm, with no bias and no statistics written.
+extern "C" int genvc_rms_norm(const void* x, const void* scale, void* y, long long rows,
+                              int d, long long ld, int x_bf16, int param_bf16, float eps,
+                              void* stream) {
+  return dispatch<true>(x, scale, scale, y, nullptr, nullptr, rows, d, ld, x_bf16,
+                        param_bf16, eps, stream);
 }

@@ -37,11 +37,23 @@ f32 cache takes the plain ``nn.attention`` path everywhere, as in the JAX
 engine: a numerics choice, not a fallback. Every write to an fp8 cache goes
 through ``da.to_cache`` (the JAX package's e4m3 rounding, overflow stored as
 0x7F / 0xFF); every read takes those codes as +-480.
+
+The DeepSeek-V3 backbone (``GPTConfig.mla_moe``, ``models/mla_moe.py``)
+keeps a second kind of cache: one latent row a position and layer, shared
+by every head, ``DecodeState.latent`` (L, B, T, kv_lora_rank +
+qk_rope_head_dim) in the GPT's type, in place of ``cache_k`` / ``cache_v``
+(None there), and each row's RoPE position of its start token
+(``DecodeState.pos0``). ``prefill`` and the lockstep step dispatch on it;
+its step reads the cache through ``ops.mla.mla_decode`` and routes through
+``ops.moe.moe_experts``, with no host sync, and on the card runs as a CUDA
+graph from its second call on (``_LatentGraphs``). Per-row (pool) states, the
+searches and fp8 caches raise for it (``mla_moe.unsupported``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -49,7 +61,10 @@ import torch
 from genvc_tpu_torch import tracing
 from genvc_tpu_torch.decode.constraints import PhraseListState, completes_all
 from genvc_tpu_torch.models import gpt as gpt_model
+from genvc_tpu_torch.models import mla_moe
 from genvc_tpu_torch.ops import decode_attention as da
+from genvc_tpu_torch.ops import mla as mla_ops
+from genvc_tpu_torch.ops import moe as moe_ops
 from genvc_tpu_torch.ops import nn as tnn
 from genvc_tpu_torch.ops import sampling
 
@@ -78,6 +93,8 @@ class DecodeState:
     finished: torch.Tensor     # (B,) bool
     generator: torch.Generator | None
     steps: int = 0             # decode steps run on this state (host count)
+    latent: torch.Tensor | None = None  # (L, B, T, R + rope): the latent cache
+    pos0: torch.Tensor | None = None    # (B,) int64: RoPE position of start_audio
 
     @property
     def per_row(self) -> bool:
@@ -96,6 +113,8 @@ def init_state(cfg: gpt_model.GPTConfig, prefix_width: int, batch: int,
                device, cache_dtype=torch.float32, generator=None,
                gen_tokens: int | None = None, per_row: bool = False) -> DecodeState:
     t = cache_size(cfg, prefix_width, gen_tokens)
+    if cfg.mla_moe is not None:
+        return _init_latent_state(cfg, t, batch, device, cache_dtype, generator, per_row)
     hd = cfg.model_dim // cfg.heads
     shape = (cfg.layers, batch, cfg.heads, t, hd)
     idx0 = torch.zeros(batch, dtype=torch.long, device=device) if per_row else 0
@@ -110,6 +129,34 @@ def init_state(cfg: gpt_model.GPTConfig, prefix_width: int, batch: int,
                                 start_audio_token=cfg.start_audio_token),
         finished=torch.zeros(batch, dtype=torch.bool, device=device),
         generator=generator)
+
+
+def _init_latent_state(cfg, t: int, batch: int, device, cache_dtype, generator,
+                       per_row: bool) -> DecodeState:
+    """A lockstep state with the latent cache of the DeepSeek-V3 backbone."""
+    if per_row:
+        raise mla_moe.unsupported("a per-row decode state (the serving pool)")
+    if cache_dtype not in (torch.bfloat16, torch.float32):
+        raise mla_moe.unsupported(f"a {cache_dtype} cache")
+    m = cfg.mla_moe
+    return DecodeState(
+        cache_k=None, cache_v=None,
+        key_valid=torch.zeros(batch, t, dtype=torch.bool, device=device),
+        cur_index=0, n_generated=0,
+        last_token=torch.full((batch,), cfg.start_audio_token, dtype=torch.long,
+                              device=device),
+        seen=sampling.init_seen(cfg.num_audio_tokens, batch, device=device,
+                                start_audio_token=cfg.start_audio_token),
+        finished=torch.zeros(batch, dtype=torch.bool, device=device),
+        generator=generator,
+        latent=torch.zeros(cfg.layers, batch, t, m.kv_lora_rank + m.qk_rope_head_dim,
+                           dtype=cache_dtype, device=device),
+        pos0=torch.zeros(batch, dtype=torch.long, device=device))
+
+
+def _gpt2_only(model, what: str):
+    if model.cfg.mla_moe is not None:
+        raise mla_moe.unsupported(what)
 
 
 def _kernel_reads(cache, q) -> bool:
@@ -167,6 +214,8 @@ def _decode_forward(model: gpt_model.GPT, state: DecodeState,
     position embedding clamped to the table's last row and a lockstep cache
     write clamped to the last slot, as JAX drops out-of-range scatters and
     clamps gathers and ``dynamic_update_slice``."""
+    if state.latent is not None:
+        return _decode_forward_latent(model, state, return_hidden)
     cfg = model.cfg
     t = state.cache_k.shape[3]
     tok_emb = model.mel_embedding[state.last_token]
@@ -188,6 +237,146 @@ def _decode_forward(model: gpt_model.GPT, state: DecodeState,
     if return_hidden:
         return latent, model.mel_head(latent), h[:, 0].float()
     return latent, model.mel_head(latent)
+
+
+def _decode_forward_latent(model: gpt_model.GPT, state: DecodeState, return_hidden: bool):
+    """:func:`_decode_forward` of the DeepSeek-V3 backbone, lockstep: each
+    block writes its latent row at ``cur_index`` (clamped to the last slot)
+    and attends in the absorbed form; the RoPE position of a row is its
+    start token's plus ``n_generated``."""
+    if return_hidden:
+        raise mla_moe.unsupported("contrastive search")
+    t = state.latent.shape[2]
+    tok_emb = model.mel_embedding[state.last_token]
+    pos_emb = model.mel_pos[min(state.n_generated, model.mel_pos.shape[0] - 1)]
+    if state.cur_index < t:
+        state.key_valid[:, state.cur_index] = True
+    h = (tok_emb + pos_emb).to(model.compute_dtype)
+    bias2 = torch.where(state.key_valid, 0.0, tnn.NEG_INF).float()
+    freqs = mla_moe.rope_freqs(state.pos0 + state.n_generated, model.cfg.mla_moe)
+    slot = min(state.cur_index, t - 1)
+    graphs = _latent_graphs(model, state)
+    if graphs is not None:
+        return graphs(model, state, (h, bias2, freqs), slot)
+    for i, block in enumerate(model.core.blocks):
+        h = mla_moe.decode_block(block, h, state.latent, i, slot, bias2, freqs)
+    latent = model.final_norm(model.core.ln_f(h)).float()
+    return latent, model.mel_head(latent)
+
+
+# On the card the latent step's blocks, ``ln_f``, the final norm and the mel
+# head (about 1250 launches at Moonlight's sizes) run as one CUDA graph, so
+# the host's part of a step is the replay and the ~50 launches around it.
+LATENT_GRAPH = True
+_COUNTED = (tnn.layer_norm, tnn.rms_norm, mla_ops.mla_decode, moe_ops.moe_experts)
+
+
+def _latent_graphs(model: gpt_model.GPT, state: DecodeState):
+    """The graphs of ``model``'s latent step at ``state``'s cache shape and
+    type, or None where the step runs op by op (CPU tensors, or
+    ``LATENT_GRAPH`` off)."""
+    if not (LATENT_GRAPH and state.latent.is_cuda):
+        return None
+    runners = model.__dict__.setdefault("_latent_graphs", {})
+    key = (tuple(state.latent.shape), state.latent.dtype, state.latent.device)
+    if key not in runners:
+        runners[key] = _LatentGraphs(state.latent)
+    return runners[key]
+
+
+def _counts() -> dict:
+    """The launch counters of the kernels' wrappers and the recorder's."""
+    out = {fn: fn.launches for fn in _COUNTED}
+    out.update(tracing.snapshot()["counters"])
+    return out
+
+
+def _add_counts(counts: dict, sign: int):
+    for key, n in counts.items():
+        if isinstance(key, str):
+            tracing.count(key, sign * n)
+        else:
+            key.launches += sign * n
+
+
+class _LatentGraphs:
+    """The step's graphs at one cache shape and type of one model, one for
+    each state of the recorder (whose counters, and the experts' device
+    counter, decide what the kernels' wrappers launch).
+
+    The graphs read their inputs from this runner's tensors and read and
+    write its own latent cache: a state adopts that cache at its first step
+    here (its prefilled cache copied in, ``state.latent`` pointed at it), and
+    the state that held it before, if still alive, gets a copy of its own.
+    A recorder state's first step runs the blocks op by op on the runner's
+    tensors, which loads what a capture needs; the second is captured, then
+    replayed. A replay adds to the launch counters and to the recorder's
+    what its capture counted, so they count the kernels run. The weights are
+    compared at each adoption: parameters moved, or absorbed products
+    remade, capture anew."""
+
+    def __init__(self, latent):
+        self.latent = torch.empty_like(latent)
+        self.slot = torch.zeros(1, dtype=torch.long, device=latent.device)
+        self.inputs = None      # h (B, D), bias2 (B, T), freqs (B, rope / 2)
+        self.owner = None       # weak reference to the state holding the cache
+        self.weights = None
+        self.graphs: dict = {}  # recorder on -> None (run once) or (graph, outputs, counts)
+
+    def __call__(self, model, state: DecodeState, inputs, slot: int):
+        self._adopt(model, state)
+        if self.inputs is None:
+            self.inputs = [torch.empty_like(x) for x in inputs]
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.slot.fill_(slot)
+        on = tracing.enabled()
+        if on not in self.graphs:
+            self.graphs[on] = None
+            return self._blocks(model)
+        if self.graphs[on] is None:
+            self.graphs[on] = self._capture(model)
+        return self.replay(on)
+
+    def _adopt(self, model, state: DecodeState):
+        if state.latent is self.latent:
+            return
+        weights = (tuple(p.data_ptr() for p in model.parameters())
+                   + tuple(w.data_ptr() for b in model.core.blocks for w in b.attn.absorbed()))
+        if weights != self.weights:
+            self.graphs.clear()
+            self.weights = weights
+        prev = self.owner() if self.owner is not None else None
+        if prev is not None and prev.latent is self.latent:
+            prev.latent = self.latent.clone()
+        self.latent.copy_(state.latent)
+        state.latent = self.latent
+        self.owner = weakref.ref(state)
+
+    def _blocks(self, model):
+        h, bias2, freqs = self.inputs
+        for i, block in enumerate(model.core.blocks):
+            h = mla_moe.decode_block(block, h, self.latent, i, self.slot, bias2, freqs)
+        latent = model.final_norm(model.core.ln_f(h)).float()
+        return latent, model.mel_head(latent)
+
+    def _capture(self, model):
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._blocks(model)
+        counts = {k: n - before.get(k, 0) for k, n in _counts().items()
+                  if n != before.get(k, 0)}
+        _add_counts(counts, -1)  # the capture ran nothing
+        return graph, out, counts
+
+    def replay(self, on: bool):
+        """Run the captured step of recorder state ``on``; fresh copies of
+        its (latent, logits)."""
+        graph, (latent, logits), counts = self.graphs[on]
+        graph.replay()
+        _add_counts(counts, 1)
+        return latent.clone(), logits.clone()
 
 
 def _select_token(logits, seen, sampler: SamplerConfig, generator, row_params=None):
@@ -231,6 +420,8 @@ def prefill_logits(model: gpt_model.GPT, state: DecodeState, prefix_emb,
     With ``return_hidden`` a third value: the post-``ln_f`` hiddens of the
     whole [prefix | start_audio] sequence (B, P + 1, D) f32, the context of
     contrastive search's degeneration penalty."""
+    if state.latent is not None:
+        return _prefill_latent(model, state, prefix_emb, prefix_valid, return_hidden)
     cfg = model.cfg
     b, p, d = prefix_emb.shape
     heads = cfg.heads
@@ -258,6 +449,33 @@ def prefill_logits(model: gpt_model.GPT, state: DecodeState, prefix_emb,
     latent = model.final_norm(h[:, -1]).float()
     if return_hidden:
         return latent, model.mel_head(latent), h.float()
+    return latent, model.mel_head(latent)
+
+
+def _prefill_latent(model: gpt_model.GPT, state: DecodeState, prefix_emb, prefix_valid,
+                    return_hidden: bool):
+    """:func:`prefill_logits` of the DeepSeek-V3 backbone: the whole
+    [prefix | start_audio] through the blocks (each row's RoPE positions
+    counting its valid columns), every layer's latent rows into the cache."""
+    if return_hidden:
+        raise mla_moe.unsupported("contrastive search")
+    cfg = model.cfg
+    b, p, d = prefix_emb.shape
+    start_emb = (model.mel_embedding[cfg.start_audio_token] + model.mel_pos[0])
+    h = torch.cat([prefix_emb, start_emb[None, None, :].expand(b, 1, d).to(prefix_emb.dtype)],
+                  dim=1).to(model.compute_dtype)
+    seq_valid = torch.cat([prefix_valid, torch.ones(b, 1, dtype=torch.bool,
+                                                    device=h.device)], dim=1)
+    bias = tnn.causal_bias(p + 1, device=h.device) + tnn.key_padding_bias(seq_valid)
+    pos = mla_moe.positions(seq_valid)
+    freqs = mla_moe.rope_freqs(pos, cfg.mla_moe)
+    for i, block in enumerate(model.core.blocks):
+        h, rows = mla_moe.full_block(block, h, bias, freqs)
+        state.latent[i, :, : p + 1] = rows.to(state.latent.dtype)
+    state.key_valid[:, : p + 1] = seq_valid
+    state.pos0 = pos[:, -1].clone()
+    state.cur_index, state.n_generated = p + 1, 0
+    latent = model.final_norm(model.core.ln_f(h[:, -1])).float()
     return latent, model.mel_head(latent)
 
 
@@ -330,6 +548,8 @@ def insert_rows(pool: DecodeState, rows: DecodeState, slots) -> None:
     (a segment prefill) into ``slots`` (B slot indices) of a per-row pool
     state, in place. Only those slots' cache, positions and sampling state
     change; the pool keeps its generator and step count."""
+    if pool.latent is not None:
+        raise mla_moe.unsupported("the serving pool")
     idx = torch.as_tensor(list(slots), dtype=torch.long, device=pool.last_token.device)
     pool.cache_k[:, idx] = da.to_cache(rows.cache_k, pool.cache_k.dtype)
     pool.cache_v[:, idx] = da.to_cache(rows.cache_v, pool.cache_v.dtype)
@@ -464,6 +684,7 @@ def decode_beam(model: gpt_model.GPT, state: DecodeState, prefix_emb, prefix_val
     JAX package's); by default it is drawn from ``state.generator``. Returns
     (tokens (max_new,) int64, stop-padded, n_tokens incl. the stop token
     when there is room)."""
+    _gpt2_only(model, "beam search")
     cfg = model.cfg
     nb, v, stop = num_beams, cfg.num_audio_tokens, cfg.stop_audio_token
     dev = state.last_token.device
@@ -547,6 +768,7 @@ def decode_group_beam(model: gpt_model.GPT, state: DecodeState, prefix_emb, pref
     its running beams stay out of the finalize. Ends when every group is
     done or at ``max_new``. Returns (tokens (max_new,), n_tokens) of the
     best hypothesis over all pools, as :func:`decode_beam`."""
+    _gpt2_only(model, "group beam search")
     nb, G = num_beams, num_beam_groups
     if nb % G != 0:
         raise ValueError("num_beams must be divisible by num_beam_groups "
@@ -655,6 +877,7 @@ def decode_constrained(model: gpt_model.GPT, state: DecodeState, prefix_emb,
     ``constraints``: a list of token phrases. ``state``: ``init_state`` with
     ``batch == num_beams``. Returns (tokens (max_new,), n_tokens) as
     :func:`decode_beam`."""
+    _gpt2_only(model, "constrained beam search")
     cfg = model.cfg
     nb, v, stop = num_beams, cfg.num_audio_tokens, cfg.stop_audio_token
     dev = state.last_token.device
@@ -786,6 +1009,7 @@ def decode_contrastive(model: gpt_model.GPT, state: DecodeState, prefix_emb,
     ``state``: ``init_state`` with ``batch == top_k``; ``prefix_emb`` /
     ``prefix_valid`` the single hypothesis tiled to ``top_k`` rows. Returns
     (tokens (max_new,), n_tokens), stop-padded."""
+    _gpt2_only(model, "contrastive search")
     k, stop = top_k, model.cfg.stop_audio_token
     dev = state.last_token.device
     _, logits, h0 = prefill_logits(model, state, prefix_emb, prefix_valid,

@@ -44,7 +44,7 @@ from genvc_tpu_torch.checkpoint import (Modules, convert_bundle, load_jax_tree,
 from genvc_tpu_torch.config import GenVCConfig
 from genvc_tpu_torch.decode import engine
 from genvc_tpu_torch.dsp import mel as mel_mod
-from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan
+from genvc_tpu_torch.models import contentvec, dvae, gpt as gpt_model, hifigan, mla_moe
 from genvc_tpu_torch.ops.conv import linear_interp_x4
 
 COND_CHUNK_SECONDS = 6
@@ -81,6 +81,8 @@ class GenVCPipeline:
         if kv_cache_dtype is None:
             self.cache_dtype = self.gpt.compute_dtype
         elif kv_cache_dtype == "fp8":
+            if self.gpt_cfg.mla_moe is not None:
+                raise mla_moe.unsupported("an e4m3 cache")
             self.cache_dtype = torch.float8_e4m3fn
         else:
             raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}; "
@@ -109,7 +111,7 @@ class GenVCPipeline:
         # 8-token cadence; STREAM_CHUNK mirrors the reference exactly
         self.first_chunk_tokens: int = 4
         self.last_timing: dict = {}
-        self._stream_calls = 0  # the request id of synthesize_streaming's spans
+        self._stream_calls = 0  # the request id of the streaming calls' spans
         self._cond_latent = None
 
     # ------------------------------------------------------------ host maths
@@ -582,9 +584,12 @@ class GenVCPipeline:
         (1, T) arrays at 16 kHz / 24 kHz. Returns (list of (T_out,) wavs at
         24 kHz, per-row first-chunk latency in s, aggregate RTF = elapsed /
         total source audio); ``self.last_timing["decode_steps"]`` counts the
-        AR steps run."""
+        AR steps run. The spans are ``synthesize_streaming``'s, with the
+        call's index as ``req``."""
         begin = time.perf_counter()
         timing = self.last_timing = {"decode_steps": 0}
+        call = self._stream_calls
+        self._stream_calls += 1
         bsz = len(src_wavs)
         stop = self.gpt_cfg.stop_audio_token
         csz = STREAM_CHUNK
@@ -599,11 +604,13 @@ class GenVCPipeline:
             if latencies[i] is None:
                 latencies[i] = time.perf_counter() - begin
 
-        conds = self.get_gpt_cond_latents_batch(ref_audios)
+        with tracing.span("genvc.cond_latents", call):
+            conds = self.get_gpt_cond_latents_batch(ref_audios)
         seg_lists = [list(self._segments(s)) for s in src_wavs]
         for r in range(max(len(s) for s in seg_lists)):
             segs, t_reals, active = self._round_rows(seg_lists, r)
-            state, _, lat0, _, n_codes = self._start_segment(segs, t_reals, conds)
+            with tracing.span("genvc.prefill", call):
+                state, _, lat0, _, n_codes = self._start_segment(segs, t_reals, conds)
             caps = [self._max_new(n) if a else 1 for n, a in zip(n_codes, active)]
             done = [not a for a in active]
             win = max(1, min(self.first_chunk_tokens, csz)) if r == 0 else csz
@@ -611,33 +618,37 @@ class GenVCPipeline:
             n_total = 1
             first_call = True
             while not all(done):
-                toks, lats, pre_fin = engine.decode_chunk(self.gpt, state,
-                                                          self.sampler, chunk=k)
-                all_lats = torch.cat([carry, lats], dim=1)
-                toks_np, pre_fin_np = toks.cpu().numpy(), pre_fin.cpu().numpy()
+                with tracing.span("genvc.decode", call):
+                    with tracing.span("genvc.decode.enqueue", call):
+                        toks, lats, pre_fin = engine.decode_chunk(self.gpt, state,
+                                                                  self.sampler, chunk=k)
+                        all_lats = torch.cat([carry, lats], dim=1)
+                    with tracing.span("genvc.decode.readback", call):
+                        toks_np, pre_fin_np = toks.cpu().numpy(), pre_fin.cpu().numpy()
                 timing["decode_steps"] += k
                 ends = {}  # row -> (complete windows, remainder), for rows still going
-                for i in range(bsz):
-                    if done[i]:
-                        continue
-                    if first_call and bool(pre_fin_np[i, 0]):
-                        # EOS on the prefill-sampled token: vocode that latent only
-                        emit(i, self._vocode_tail(all_lats, i, 0, 1, win))
-                        done[i] = True
-                        continue
-                    eos_j, _, full, rem = window_accounting(
-                        toks_np[i], n_total, caps[i], stop, carry_n, win)
-                    ends[i] = (full, rem if eos_j is not None else 0)
-                    done[i] = eos_j is not None
-                rows = [i for i, (full, _) in ends.items() if full]
-                if rows:
-                    wavs = self.batch_window_vocode(all_lats[rows], win)
-                    for j, i in enumerate(rows):
-                        for w in range(ends[i][0]):
-                            emit(i, wavs[j, w])
-                for i, (full, rem) in ends.items():
-                    if rem:
-                        emit(i, self._vocode_tail(all_lats, i, full * win, rem, win))
+                with tracing.span("genvc.vocode", call):
+                    for i in range(bsz):
+                        if done[i]:
+                            continue
+                        if first_call and bool(pre_fin_np[i, 0]):
+                            # EOS on the prefill-sampled token: vocode that latent only
+                            emit(i, self._vocode_tail(all_lats, i, 0, 1, win))
+                            done[i] = True
+                            continue
+                        eos_j, _, full, rem = window_accounting(
+                            toks_np[i], n_total, caps[i], stop, carry_n, win)
+                        ends[i] = (full, rem if eos_j is not None else 0)
+                        done[i] = eos_j is not None
+                    rows = [i for i, (full, _) in ends.items() if full]
+                    if rows:
+                        wavs = self.batch_window_vocode(all_lats[rows], win)
+                        for j, i in enumerate(rows):
+                            for w in range(ends[i][0]):
+                                emit(i, wavs[j, w])
+                    for i, (full, rem) in ends.items():
+                        if rem:
+                            emit(i, self._vocode_tail(all_lats, i, full * win, rem, win))
                 first_call = False
                 n_total += k
                 carry = all_lats[:, :0]
@@ -713,9 +724,11 @@ def model_init(checkpoint_path: str, device="cuda", dtype=torch.float32,
 
 def build_pipeline(tree: dict, cfg: GenVCConfig, device="cuda",
                    dtype=torch.float32, seed: int = 0, quantize: str | None = None,
-                   kv_cache_dtype: str | None = None) -> GenVCPipeline:
+                   kv_cache_dtype: str | None = None, backbone=None) -> GenVCPipeline:
+    """The pipeline over ``tree``; ``backbone`` (a ``config.MLAMoEConfig``)
+    runs the DeepSeek-V3 blocks in place of GenVC's GPT-2 blocks."""
     dev = resolve_device(device)
-    mods = load_jax_tree(tree, cfg, dev, dtype, quantize=quantize)
+    mods = load_jax_tree(tree, cfg, dev, dtype, quantize=quantize, backbone=backbone)
     return GenVCPipeline(cfg, mods, _load_mel_norms(cfg, dev), dev, seed=seed,
                          quantize=quantize, kv_cache_dtype=kv_cache_dtype)
 
@@ -735,13 +748,15 @@ def flagship_config() -> GenVCConfig:
     return cfg
 
 
-def random_tree(cfg: GenVCConfig, seed: int, device, contentvec_layers: int = 12) -> dict:
+def random_tree(cfg: GenVCConfig, seed: int, device, contentvec_layers: int = 12,
+                backbone=None) -> dict:
     """Seeded random parameters for every family the streaming path loads,
-    drawn on ``device`` with the JAX package's init distributions."""
+    drawn on ``device`` with the JAX package's init distributions (the
+    DeepSeek-V3 blocks of ``backbone`` with ``mla_moe.init_block``'s)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     gcfg = gpt_model.GPTConfig(
         layers=cfg.model_args.gpt_layers, model_dim=cfg.model_args.gpt_n_model_channels,
-        heads=cfg.model_args.gpt_n_heads)
+        heads=cfg.model_args.gpt_n_heads, mla_moe=backbone)
     cd = cfg.content_dvae_config
     return {
         "gpt": gpt_model.init_tree(gen, gcfg),

@@ -6,6 +6,11 @@ Pre-LN GPT-2 blocks (gelu_new MLP), learned per-modality positional tables,
 text/mel embeddings and heads, a shared ``final_norm`` and the Perceiver
 speaker conditioner. Parameters keep the JAX tree's names; the layer stack is
 an ``nn.ModuleList`` (the JAX tree's stacked leading axis is split at load).
+
+With ``GPTConfig.mla_moe`` set the blocks are DeepSeek-V3's instead
+(``models/mla_moe.py``: latent attention, a mixture of experts, RMSNorm, and
+an RMSNorm ``ln_f``); everything around them is GenVC's. That backbone has
+no tensor parallelism and no training forward (both raise).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
-from genvc_tpu_torch.models import perceiver
+from genvc_tpu_torch.models import mla_moe, perceiver
 from genvc_tpu_torch.ops import flash_attention as fa
 from genvc_tpu_torch.ops import nn as tnn
 from genvc_tpu_torch.parallel import collectives
@@ -44,6 +49,7 @@ class GPTConfig:
     max_prompt_tokens: int = 70
     perceiver_cond_length_compression: int = 256
     label_smoothing: float = 0.0
+    mla_moe: mla_moe.MLAMoEConfig | None = None  # the DeepSeek-V3 backbone, else GPT-2
 
     @property
     def max_gen_mel_tokens(self) -> int:
@@ -120,6 +126,12 @@ class Block(nn.Module):
 class Core(nn.Module):
     def __init__(self, cfg: GPTConfig, n_model: int = 1):
         super().__init__()
+        if cfg.mla_moe is not None:
+            m = cfg.mla_moe
+            self.blocks = nn.ModuleList(mla_moe.MLAMoEBlock(cfg.model_dim, cfg.heads, m, i)
+                                        for i in range(cfg.layers))
+            self.ln_f = tnn.RMSNorm(cfg.model_dim, m.rms_norm_eps)
+            return
         self.blocks = nn.ModuleList(Block(cfg.model_dim, n_model) for _ in range(cfg.layers))
         self.ln_f = tnn.LayerNorm(cfg.model_dim)
 
@@ -135,6 +147,8 @@ class GPT(nn.Module):
     def __init__(self, cfg: GPTConfig, n_model: int = 1):
         super().__init__()
         d = cfg.model_dim
+        if cfg.mla_moe is not None and n_model > 1:
+            raise mla_moe.unsupported("tensor parallelism")
         if cfg.heads % n_model:
             raise ValueError(f"{cfg.heads} heads do not divide over n_model={n_model}")
         self.cfg = cfg
@@ -247,6 +261,10 @@ def core_forward(core: Core, h, cfg: GPTConfig, key_valid=None, attn_impl="flash
     b, t, _ = h.shape
     kv = key_valid if key_valid is not None else torch.ones(
         b, t, dtype=torch.bool, device=h.device)
+    if cfg.mla_moe is not None:  # inference only (forward_train raises)
+        if remat or model_group is not None:
+            raise mla_moe.unsupported("remat and tensor parallelism")
+        return mla_moe.core_forward(core, h, kv)
     if attn_impl == "flash":
         def attend(q, k, v):
             return fa.flash_attention(q, k, v, kv)
@@ -336,6 +354,8 @@ def forward_train(model: GPT, text_inputs, text_lengths, audio_codes, wav_length
     denominators all-reduced here); the shares sum over the group to the
     global means (JAX's ``_masked_ce`` over the sharded batch)."""
     cfg = model.cfg
+    if cfg.mla_moe is not None:
+        raise mla_moe.unsupported("training")
     b, wt = text_inputs.shape
     wm = audio_codes.shape[1]
     dev = text_inputs.device
@@ -407,20 +427,26 @@ def init_tree(gen, cfg: GPTConfig):
     for the residual projections, so bf16 activations stay in range."""
     d = cfg.model_dim
     proj_std = 0.02 / math.sqrt(2 * cfg.layers)
-    blocks = [{
-        "ln_1": tnn.init_layer_norm(gen, d),
-        "attn": {"c_attn": tnn.init_linear(gen, d, 3 * d, std=0.02),
-                 "c_proj": tnn.init_linear(gen, d, d, std=proj_std)},
-        "ln_2": tnn.init_layer_norm(gen, d),
-        "mlp": {"c_fc": tnn.init_linear(gen, d, 4 * d, std=0.02),
-                "c_proj": tnn.init_linear(gen, 4 * d, d, std=proj_std)},
-    } for _ in range(cfg.layers)]
+    if cfg.mla_moe is not None:
+        blocks = [mla_moe.init_block(gen, d, cfg.heads, cfg.mla_moe, i)
+                  for i in range(cfg.layers)]
+        ln_f = {"scale": torch.ones(d, device=gen.device)}
+    else:
+        blocks = [{
+            "ln_1": tnn.init_layer_norm(gen, d),
+            "attn": {"c_attn": tnn.init_linear(gen, d, 3 * d, std=0.02),
+                     "c_proj": tnn.init_linear(gen, d, d, std=proj_std)},
+            "ln_2": tnn.init_layer_norm(gen, d),
+            "mlp": {"c_fc": tnn.init_linear(gen, d, 4 * d, std=0.02),
+                    "c_proj": tnn.init_linear(gen, 4 * d, d, std=proj_std)},
+        } for _ in range(cfg.layers)]
+        ln_f = tnn.init_layer_norm(gen, d)
     return {
         "text_embedding": tnn.init_embedding(gen, cfg.number_text_tokens, d),
         "mel_embedding": tnn.init_embedding(gen, cfg.num_audio_tokens, d),
         "text_pos": tnn.init_embedding(gen, cfg.text_positions, d),
         "mel_pos": tnn.init_embedding(gen, cfg.mel_positions, d),
-        "core": {"blocks": blocks, "ln_f": tnn.init_layer_norm(gen, d)},
+        "core": {"blocks": blocks, "ln_f": ln_f},
         "final_norm": tnn.init_layer_norm(gen, d),
         "text_head": tnn.init_linear(gen, d, cfg.number_text_tokens),
         "mel_head": tnn.init_linear(gen, d, cfg.num_audio_tokens),

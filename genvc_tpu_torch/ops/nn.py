@@ -8,7 +8,8 @@ Conventions kept from the JAX side so converted trees load without change:
   ``jnp.dot(x, w.astype(x.dtype))``: bf16 weights applied to f32 activations
   run in f32;
 * LayerNorm computes in f32 and returns the input dtype; eps = 1e-5. On the
-  card it is one launch of ``csrc/layer_norm.cu`` (:func:`layer_norm`).
+  card it is one launch of ``csrc/layer_norm.cu`` (:func:`layer_norm`), and
+  so is RMSNorm (:func:`rms_norm`, the kernel's RMS mode).
 """
 
 from __future__ import annotations
@@ -171,6 +172,76 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 layer_norm.launches = 0
 
 
+def rms_norm_plain(x, scale, eps: float = 1e-5):
+    """RMSNorm in PyTorch ops: x * rsqrt(mean(x^2) + eps) * scale, in f32,
+    x's dtype out."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+            * scale.float()).to(x.dtype)
+
+
+def _rows_view(x):
+    """x as (rows, d) rows one stride apart, without a copy, or None."""
+    try:
+        rows = x.view(-1, x.shape[-1])
+    except RuntimeError:
+        return None
+    return rows if rows.stride(-1) == 1 else None
+
+
+@functools.cache
+def _rms_norm_fn():
+    from genvc_tpu_torch import _build
+
+    fn = _build.load("layer_norm").genvc_rms_norm
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """RMSNorm over the last dimension (:func:`rms_norm_plain`'s arithmetic).
+    CPU tensors take the plain ops; on the card it is one launch of the RMS
+    mode of ``csrc/layer_norm.cu``, which reads rows of x that lie a fixed
+    stride apart (a column slice of a wider tensor, no copy) and writes a
+    contiguous result. The kernel takes what :func:`layer_norm_kernel_takes`
+    says of x's width, types and alignment (scale standing for both
+    parameters); anything else raises. No autograd. Each launch adds one to
+    ``rms_norm.launches`` and, with the recorder on, to the counter
+    ``ops.rms_norm.kernel``."""
+    if not x.is_cuda:
+        if x.is_cpu:
+            return rms_norm_plain(x, scale, eps)
+        raise ValueError(f"unsupported device {x.device}")
+    d = x.shape[-1]
+    rows = _rows_view(x)
+    if rows is None:
+        rows = x.contiguous().view(-1, d)
+    ld = rows.stride(0) if rows.shape[0] > 1 else d
+    vec = _LN_VEC.get(x.dtype)
+    if vec is None or ld % vec or not layer_norm_kernel_takes(rows, scale, scale):
+        raise ValueError(
+            f"rms_norm kernel: x {x.dtype} {tuple(x.shape)} strides {x.stride()} at byte "
+            f"{x.data_ptr() % 16} of 16, scale {scale.dtype} {tuple(scale.shape)} on "
+            f"{scale.device}: it takes x bf16 (f32) of a width that is a multiple of 8 (4) "
+            "up to 2048 (1024), rows a multiple of that apart, 16-byte aligned, and a "
+            "contiguous bf16 or f32 scale of that width on x's device")
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    err = _rms_norm_fn()(
+        rows.data_ptr(), scale.data_ptr(), y.data_ptr(), rows.shape[0], d, ld,
+        int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), eps,
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
+    if err != 0:
+        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {err}")
+    rms_norm.launches += 1
+    tracing.count("ops.rms_norm.kernel")
+    return y
+
+
+rms_norm.launches = 0
+
+
 def rms_norm_l2(x, gamma):
     """torch ``F.normalize(x, dim=-1) * sqrt(d) * gamma`` (reference perceiver
     RMSNorm)."""
@@ -243,6 +314,18 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias)
+
+
+class RMSNorm(nn.Module):
+    """Parameter ``scale`` (d,); eps 1e-5 unless given."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.scale = _empty(d)
+        self.eps = eps
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
 
 
 # ---------------------------------------------------------------------------
